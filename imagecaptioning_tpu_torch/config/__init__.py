@@ -1,0 +1,1 @@
+"""config of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""models/backbones of the PyTorch port (see the package docstring)."""
