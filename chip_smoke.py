@@ -6,22 +6,39 @@ dense-caption serving on one CUDA card.
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
 1. card name and power limit; TF32 off for cuDNN and cuBLAS;
-2. build the ROI-pooling kernel from csrc/roi_align.cu (timed, set-up);
-3. the kernel against its plain PyTorch version at the serving shapes
-   (8 images × 32 boxes, 16×16×512 map, the 512² images' VGG16 output)
-   and the infer CLI's canvas shape (1 × 32 boxes, 22×22×512, 720²),
-   edge boxes included, and on phase 4's own trunk output; max-abs
-   error ≤ 1e-5 (fp32, the same taps);
-   times of the kernel, the plain version and affine_grid+grid_sample,
-   and the bound (bytes over 3.35 TB/s vs 6 flops per output over
-   67 TFLOP/s fp32, the H100 SXM's published peaks);
-4. full-width serving from a seed: VGG16 (5 stages, bf16) → ROI kernel →
-   fc6/fc7 4096 (bf16) → LSTM head 512 (fp32), vocab 10,000, seq 16, on
-   8 uint8 512² images × 32 regions: greedy and beam-3 (log-prob) region
-   decode of 17 steps, regions/s from CUDA events after warm-up, the
-   kernel's launch count over that run, and a profile of one decode;
-5. the same full-width weights in fp32 on the card against the CPU on a
-   small input: teacher-forced logits within 1e-4.
+2. build the ROI-pooling kernel from csrc/roi_align.cu (timed, set-up),
+   with nvcc's register and spill report;
+3. each entry of the kernel against its plain PyTorch version at the
+   serving shape (8 images × 32 boxes, 16×16×512 map, the 512² images'
+   VGG16 output) and the infer CLI's canvas shape (1 × 32 boxes,
+   22×22×512, 720²), edge boxes included: the NHWC entry (fp32 map →
+   fp32, `roi_align_batch`, or `roi_align` at N=1) and the fused CHW
+   entry (`roi_align_batch_chw`: fp32 → fp32, and bf16 → bf16 as the
+   serving path calls it). fp32 max-abs error ≤ 1e-5; bf16 within one
+   bf16 ulp everywhere, with the bitwise-equal share. Times: the
+   median of CUDA events around each launch alone, the card spinning
+   before it so that the host's enqueue time stays out, L2-hot and cold
+   (128 MB written, then 128 MB read, before each launch; "cold_dirty"
+   skips the read, so the launch also writes back dirty lines); the
+   host's enqueue time per call; the plain version's and
+   affine_grid+grid_sample's, and the bound: the larger of the bytes
+   (each tensor's own element size) over 3.35 TB/s and 6 flops per
+   output over 67 TFLOP/s fp32, the H100 SXM's published peaks;
+4. full-width serving from a seed: VGG16 (5 stages, bf16) → fused ROI
+   kernel (bf16 CHW codes) → fc6/fc7 4096 (bf16) → LSTM head 512 (fp32),
+   vocab 10,000, seq 16, on 8 uint8 512² images × 32 regions: greedy and
+   beam-3 (log-prob) region decode of 17 steps, regions/s from CUDA
+   events after warm-up and before the profiler is first used, each ROI
+   wrapper's launch count over that run (the fused entry: one per
+   forward); then the kernel's entries against their plain versions on
+   the trunk's own output, and the ROI stage (trunk output → fc6 input)
+   as four launches (widen, NHWC entry, CHW copy, narrow) beside the
+   fused entry, timed as in 3 and by the profiler (CUPTI);
+5. the kernels' own device time (CUPTI), hot and cold, of phase 3's
+   entries, and a profile of one greedy and one beam decode;
+6. the same full-width weights in fp32 on the card against the CPU on a
+   small input: teacher-forced logits within 1e-4 (the fused entry
+   writes fp32 codes there).
 The last three lines: the card as nvidia-smi reports it, one JSON line of
 per-kernel numbers, and {"ok": true, "device": ...}. The profiler's full
 tables go to <out-dir>/chip_smoke_profile.txt (`--out-dir`, default
@@ -47,6 +64,9 @@ ROI_TOL = 1e-5
 LOGIT_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 FP32_FLOPS = 67e12            # H100 SXM, fp32 outside the tensor cores
+FLUSH_BYTES = 128 << 20       # > the H100's 50 MB L2
+HEAD_START_CYCLES = 400_000   # ~0.2 ms at the H100's 1.98 GHz boost clock
+ROI_WRAPPERS = ("roi_align_batch_chw", "roi_align_batch", "roi_align")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -61,6 +81,125 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, flush: torch.Tensor | None = None,
+              dirty: bool = False) -> float:
+    """Median device milliseconds of one call of `fn`, with the events
+    around the call alone. Before each call the card spins for
+    HEAD_START_CYCLES without touching memory, so the host's enqueue of
+    the call never shows in its time. Without `flush` the call finds L2
+    as its previous call left it (hot). With it, before the spin, the
+    FLUSH_BYTES of `flush[0]` are written, so none of the call's data
+    stays in the 50 MB L2 (cold), and unless `dirty` those of `flush[1]`
+    are then read, so no dirty line is left for the call to write back
+    either."""
+    fn()
+    pairs = []
+    for _ in range(iters):
+        if flush is not None:
+            flush[0].zero_()
+            if not dirty:
+                flush[1].sum()
+        torch.cuda._sleep(HEAD_START_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def host_us(fn, iters: int = 50) -> float:
+    """Mean host microseconds to enqueue one call of `fn` (the card is kept
+    busy meanwhile, so the host never waits for it)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HEAD_START_CYCLES * 20)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
+def cupti_ms(fn, iters: int, flush: torch.Tensor | None = None):
+    """Mean device time of the kernels that one call of `fn` launches, as
+    the profiler (CUPTI) records them: no event or launch gap in it. With
+    `flush`, L2 is flushed clean before each call as in `device_ms`, and
+    the flush's own kernels are left out. The profiler now and then
+    returns no kernel at all: then it is asked again, twice at most, and
+    the result is "not measured"."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    fn()
+    flushing = ("FillFunctor", "reduce_kernel")
+    for _ in range(3):
+        with prof(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as p:
+            for _ in range(iters):
+                if flush is not None:
+                    flush[0].zero_()
+                    flush[1].sum()
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in p.key_averages()
+                 if str(e.device_type).endswith("CUDA")
+                 and not any(w in e.key for w in flushing))
+        if us > 0:
+            return us / iters / 1e3
+    return "not measured"
+
+
+def timings(fn, iters: int, flush: torch.Tensor) -> dict:
+    """Event times (cold, cold with dirty lines, hot) and the host's
+    enqueue time."""
+    return {"ms_cold": device_ms(fn, iters, flush),
+            "ms_cold_dirty": device_ms(fn, iters, flush, dirty=True),
+            "ms_hot": device_ms(fn, iters), "host_us": host_us(fn)}
+
+
+def cupti_times(fn, iters: int, flush: torch.Tensor) -> dict:
+    """The kernels' own device time (CUPTI), cold and hot."""
+    return {"kernel_ms_cold": cupti_ms(fn, iters, flush),
+            "kernel_ms_hot": cupti_ms(fn, iters)}
+
+
+def within_one_bf16_ulp(got, want):
+    """Elementwise |got - want| <= one bf16 ulp at the larger magnitude."""
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    return (g - w).abs() <= torch.ldexp(torch.ones_like(g), e - 8)
+
+
+def compare(got, want) -> dict:
+    """The kernel's output against its plain version's: fp32 within
+    ROI_TOL, bf16 within one bf16 ulp everywhere (raises otherwise)."""
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if got.dtype == torch.float32:
+        if not err <= ROI_TOL:
+            raise AssertionError(f"ROI kernel vs plain: max abs err {err} > "
+                                 f"{ROI_TOL}")
+        return {"max_abs_err": err, "tolerance": ROI_TOL}
+    if not bool(within_one_bf16_ulp(got, want).all()):
+        raise AssertionError(f"ROI kernel vs plain: bf16 codes more than one "
+                             f"ulp apart (max abs err {err})")
+    same = got.view(torch.int16) == want.view(torch.int16)
+    return {"max_abs_err": err, "tolerance": "one bf16 ulp",
+            "bitwise_equal_share": float(same.float().mean())}
+
+
+def roofline(inputs, out) -> dict:
+    """The least time for the call: each input read once and the output
+    written once at their own element sizes, against 6 flops per output."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, out))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 6 * out.numel() / FP32_FLOPS * 1e3
+    return {"bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def edge_boxes(rng, n, r, ih, iw):
@@ -102,50 +241,105 @@ def grid_sample_roi(features, boxes, image_hw, out_hw):
     return call, lambda out: out.reshape(n, c, r, oh, ow).permute(0, 2, 3, 4, 1)
 
 
-def check_roi_kernel(dev, roi, n, r, hf, c, image, iters):
-    """Kernel vs plain version vs grid_sample at one shape → a dict of
-    the numbers (raises if the kernel disagrees with the plain version)."""
+def check_roi_kernel(dev, roi, n, r, hf, c, image, iters, flush):
+    """Each entry of the kernel vs its plain version at one shape, with
+    its event times, bound and grid_sample's time → ({case: numbers},
+    {case: the call}) (raises if an entry disagrees with its plain
+    version)."""
     rng = np.random.RandomState(SEED + n)
-    feats = torch.from_numpy(rng.randn(n, hf, hf, c).astype(np.float32)).to(dev)
+    f32 = torch.from_numpy(rng.randn(n, hf, hf, c).astype(np.float32)).to(dev)
+    b16 = f32.to(torch.bfloat16)
     boxes = torch.from_numpy(edge_boxes(rng, n, r, image, image)).to(dev)
     hw = (float(image), float(image))
+    bf16 = torch.bfloat16
     if n == 1:      # the N=1 call (replaces roi_align_pallas_fwd)
-        kernel = lambda: roi.roi_align(feats[0], boxes[0], hw)[None]
+        nhwc = ("roi_align", lambda: roi.roi_align(f32[0], boxes[0], hw)[None])
     else:
-        kernel = lambda: roi.roi_align_batch(feats, boxes, hw)
-    got = kernel()
-    torch.cuda.synchronize()
-    want = roi.roi_align_batch_reference(feats, boxes, hw)
-    err = float((got - want).abs().max())
-    if not err <= ROI_TOL:
-        raise AssertionError(f"ROI kernel vs plain at N={n}: max abs err "
-                             f"{err} > {ROI_TOL}")
-    lib_call, lib_layout = grid_sample_roi(feats, boxes, hw, (7, 7))
-    lib_err = float((lib_layout(lib_call()) - got).abs().max())
-    nbytes = (feats.numel() + boxes.numel() + got.numel()) * 4
-    flops = 6 * got.numel()
-    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = flops / FP32_FLOPS * 1e3
-    res = {
-        "shape": f"N={n} R={r} {hf}x{hf}x{c} image {image} -> 7x7",
-        "max_abs_err": err,
-        "ms": cuda_ms(kernel, iters),
-        "plain_ms": cuda_ms(
-            lambda: roi.roi_align_batch_reference(feats, boxes, hw), iters // 4),
-        "library_ms": cuda_ms(lib_call, iters // 4),
-        "library_max_abs_diff": lib_err,
-        "bytes": nbytes,
-        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        nhwc = ("roi_align_batch", lambda: roi.roi_align_batch(f32, boxes, hw))
+    cases = {
+        f"{nhwc[0]} fp32->fp32 NHWC": (
+            f32, nhwc[1],
+            lambda: roi.roi_align_batch_reference(f32, boxes, hw)),
+        "roi_align_batch_chw fp32->fp32 CHW": (
+            f32, lambda: roi.roi_align_batch_chw(f32, boxes, hw),
+            lambda: roi.roi_align_batch_chw_reference(f32, boxes, hw)),
+        "roi_align_batch_chw bf16->bf16 CHW": (
+            b16, lambda: roi.roi_align_batch_chw(b16, boxes, hw,
+                                                 out_dtype=bf16),
+            lambda: roi.roi_align_batch_chw_reference(b16, boxes, hw,
+                                                      out_dtype=bf16)),
     }
-    print(f"roi kernel {res['shape']}: {json.dumps(res)}", flush=True)
+    # the library yardstick computes the same pooling on the fp32 map
+    lib_call, lib_layout = grid_sample_roi(f32, boxes, hw, (7, 7))
+    lib = {"library_ms": device_ms(lib_call, iters // 4, flush),
+           "library_ms_hot": device_ms(lib_call, iters // 4)}
+    shape = f"N={n} R={r} {hf}x{hf}x{c} image {image} -> 7x7"
+    out = {}
+    for case, (feats, kernel, plain) in cases.items():
+        got = kernel()
+        res = {"shape": shape, **compare(got, plain()),
+               **roofline((feats, boxes), got),
+               **timings(kernel, iters, flush),
+               "plain_ms": cuda_ms(plain, iters // 4), **lib}
+        res["cold_share_of_bound"] = res["bound_ms"] / res["ms_cold"]
+        if "NHWC" in case:
+            res["library_max_abs_diff"] = float(
+                (lib_layout(lib_call()) - got).abs().max())
+        print(f"roi kernel {case}, {shape}: {json.dumps(res)}", flush=True)
+        out[case] = res
+    return out, {case: kernel for case, (_, kernel, _) in cases.items()}
+
+
+def add_cupti(results: dict, calls: dict, iters: int, flush) -> None:
+    """Add each case's CUPTI times (and their share of its bound) to
+    check_roi_kernel's numbers."""
+    for case, fn in calls.items():
+        res = results[case]
+        res.update(cupti_times(fn, iters, flush))
+        if isinstance(res["kernel_ms_cold"], float):
+            res["kernel_cold_share_of_bound"] = (res["bound_ms"]
+                                                 / res["kernel_ms_cold"])
+        print(f"roi kernel {case}, {res['shape']}, CUPTI: "
+              f"{res['kernel_ms_cold']} ms cold, {res['kernel_ms_hot']} ms "
+              f"hot", flush=True)
+
+
+def roi_stage(roi, feats, boxes, hw, flush):
+    """The serving path's ROI stage, trunk output (bf16 NHWC) → fc6 input
+    (bf16 CHW codes): composed of public calls (widen, NHWC entry, CHW
+    copy, narrow; four launches) beside the fused entry (one), which must
+    give the same bits. Hot and cold times, in the order A B B A."""
+    n, r = boxes.shape[:2]
+    bf16 = torch.bfloat16
+
+    def composed():
+        pooled = roi.roi_align_batch(feats.float().contiguous(), boxes, hw)
+        return pooled.permute(0, 1, 4, 2, 3).reshape(n, r, -1).to(bf16)
+
+    def fused():
+        return roi.roi_align_batch_chw(feats, boxes, hw, out_dtype=bf16)
+    if not torch.equal(composed(), fused()):
+        raise AssertionError("fused ROI stage differs from the four launches")
+    order = (("four_launches", composed), ("fused", fused))
+    res = {name: {} for name, _ in order}
+    for name, fn in order + order[::-1]:
+        for k, t in {**timings(fn, 50, flush),
+                     **cupti_times(fn, 50, flush)}.items():
+            res[name].setdefault(k, []).append(t)
+    for v in res.values():
+        for k in list(v):
+            v[f"{k}_mean"] = float(np.mean(v[k]))
+    res["fused_faster_cold"] = (res["fused"]["ms_cold_mean"]
+                                < res["four_launches"]["ms_cold_mean"])
+    res["fused_faster_hot"] = (res["fused"]["ms_hot_mean"]
+                               < res["four_launches"]["ms_hot_mean"])
     return res
 
 
-def serve(dev, model, api, normalize_images, roi):
+def serve(dev, model, api, normalize_images, roi, flush):
     """The main path at full width: greedy and beam-3 region decode of
-    8 images × 32 regions, timed after warm-up, with the kernel's launch
-    count over the timed run. Returns a dict of the numbers."""
+    8 images × 32 regions, timed after warm-up, with each ROI wrapper's
+    launch count over the timed run. Returns a dict of the numbers."""
     rng = np.random.RandomState(SEED)
     images_u8 = torch.from_numpy(rng.randint(
         0, 256, (N_IMAGES, IMAGE, IMAGE, 3), dtype=np.uint8)).to(dev)
@@ -166,16 +360,17 @@ def serve(dev, model, api, normalize_images, roi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    roi.roi_align_batch.launches = 0
-    roi.roi_align.launches = 0
+    for name in ROI_WRAPPERS:
+        getattr(roi, name).launches = 0
     t0 = time.perf_counter()
     greedy_ms = cuda_ms(run_greedy, iters=5, warmup=0)
     beam_ms = cuda_ms(run_beam, iters=5, warmup=0)
     wall_s = time.perf_counter() - t0
-    launches = {"roi_align_batch": roi.roi_align_batch.launches,
-                "roi_align": roi.roi_align.launches}
-    if launches["roi_align_batch"] < 1:
-        raise AssertionError("the serving path never launched the ROI kernel")
+    launches = {name: getattr(roi, name).launches for name in ROI_WRAPPERS}
+    if launches["roi_align_batch_chw"] != 10:     # one per forward
+        raise AssertionError(f"the fused ROI entry was launched "
+                             f"{launches['roi_align_batch_chw']} times in "
+                             f"10 forwards")
 
     toks, res = outs["greedy"], outs["beam"]
     v3 = VOCAB + 3
@@ -192,18 +387,24 @@ def serve(dev, model, api, normalize_images, roi):
     x = normalize_images(images_u8)
     with torch.inference_mode():
         vgg_ms = cuda_ms(lambda: model.features(x), iters=5)
-        feats = model.features(x).float().contiguous()
+        feats = model.features(x)    # bf16 NHWC view, as encode_regions sees
         hw = (float(IMAGE), float(IMAGE))
-        # the kernel against its plain version on the main path's own
+        bf16 = torch.bfloat16
+        # each entry against its plain version on the main path's own
         # trunk output and boxes
-        err = float((roi.roi_align_batch(feats, boxes, hw)
-                     - roi.roi_align_batch_reference(feats, boxes, hw))
-                    .abs().max())
-        if not err <= ROI_TOL:
-            raise AssertionError(f"ROI kernel vs plain on the trunk's "
-                                 f"output: max abs err {err} > {ROI_TOL}")
-        roi_ms = cuda_ms(lambda: roi.roi_align_batch(feats, boxes, hw),
-                         iters=20)
+        trunk_checks = {
+            "roi_align_batch bf16->fp32 NHWC": compare(
+                roi.roi_align_batch(feats, boxes, hw),
+                roi.roi_align_batch_reference(feats, boxes, hw)),
+            "roi_align_batch_chw bf16->fp32 CHW": compare(
+                roi.roi_align_batch_chw(feats, boxes, hw),
+                roi.roi_align_batch_chw_reference(feats, boxes, hw)),
+            "roi_align_batch_chw bf16->bf16 CHW": compare(
+                roi.roi_align_batch_chw(feats, boxes, hw, out_dtype=bf16),
+                roi.roi_align_batch_chw_reference(feats, boxes, hw,
+                                                  out_dtype=bf16)),
+        }
+        stage = roi_stage(roi, feats, boxes, hw, flush)
         encode_ms = cuda_ms(lambda: model.encode_flat(x, boxes), iters=5)
 
     res_d = {
@@ -211,8 +412,8 @@ def serve(dev, model, api, normalize_images, roi):
         "greedy_ms": greedy_ms, "beam_ms": beam_ms,
         "greedy_regions_per_s": regions / greedy_ms * 1e3,
         "beam3_regions_per_s": regions / beam_ms * 1e3,
-        "encode_ms": encode_ms, "vgg_ms": vgg_ms, "roi_ms": roi_ms,
-        "roi_max_abs_err_on_trunk_output": err,
+        "encode_ms": encode_ms, "vgg_ms": vgg_ms, "roi_stage": stage,
+        "roi_checks_on_trunk_output": trunk_checks,
         "timed_wall_s": wall_s, "launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "beam_finished_share": float(res.finished[:, 0].float().mean()),
@@ -317,12 +518,15 @@ def main() -> int:
     _kernels.roi_align_lib()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s -> {lib.name}")
     print("".join(line for line in Path(f"{lib}.log").read_text()
-                  .splitlines(keepends=True) if "Used" in line or "spill" in line))
+                  .splitlines(keepends=True)
+                  if any(w in line for w in ("Used", "spill", "properties"))))
 
-    slice_roi = check_roi_kernel(dev, roi, N_IMAGES, N_REGIONS, IMAGE // 32,
-                                 512, IMAGE, iters=200)
-    canvas_roi = check_roi_kernel(dev, roi, 1, N_REGIONS, 720 // 32, 512, 720,
-                                  iters=200)
+    flush = torch.zeros(2, FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    print(f"events around no work: {device_ms(lambda: None, 50)} ms")
+    slice_roi, slice_calls = check_roi_kernel(
+        dev, roi, N_IMAGES, N_REGIONS, IMAGE // 32, 512, IMAGE, 200, flush)
+    canvas_roi, canvas_calls = check_roi_kernel(
+        dev, roi, 1, N_REGIONS, 720 // 32, 512, 720, 200, flush)
 
     def build(d, dtype):
         with torch.device(d):
@@ -337,24 +541,34 @@ def main() -> int:
     print(f"model init (seed {SEED}): {time.perf_counter() - t0:.2f} s, "
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params")
     served, run_beam, run_greedy = serve(dev, model, api, normalize_images,
-                                         roi)
+                                         roi, flush)
+    add_cupti(slice_roi, slice_calls, 200, flush)
+    add_cupti(canvas_roi, canvas_calls, 200, flush)
     prof = profile(run_beam, run_greedy, args.out_dir)
     ref = reference_check(dev, model, build, api)
 
+    # the serving path's kernel: the fused entry, bf16 map → bf16 codes
+    main_case = slice_roi["roi_align_batch_chw bf16->bf16 CHW"]
     kernel = {
-        "name": "roi_align_batch", "route": "cuda",
+        "name": "roi_align_batch_chw", "route": "cuda",
         "source": "imagecaptioning_tpu_torch/csrc/roi_align.cu",
         "replaces": "imagecaptioning_tpu/ops/roi_align.py:204",
-        "launches": served["launches"]["roi_align_batch"],
-        "max_abs_err": max(slice_roi["max_abs_err"],
-                           served["roi_max_abs_err_on_trunk_output"]),
-        **{k: slice_roi[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")},
-        "shape": slice_roi["shape"],
+        "launches": served["launches"]["roi_align_batch_chw"],
+        "max_abs_err": max(main_case["max_abs_err"], served[
+            "roi_checks_on_trunk_output"][
+            "roi_align_batch_chw bf16->bf16 CHW"]["max_abs_err"]),
+        "tolerance": "one bf16 ulp per element",
+        "ms": main_case["ms_cold"],
+        **{k: main_case[k] for k in ("ms_hot", "kernel_ms_cold",
+                                     "kernel_ms_hot", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms",
+                                     "library_ms_hot", "bytes")},
+        "shape": main_case["shape"],
         "also_replaces": "imagecaptioning_tpu/ops/roi_align.py:127 "
-                         "(roi_align_pallas_fwd) as its N=1 call, roi_align",
+                         "(roi_align_pallas_fwd): the same kernel's NHWC "
+                         "entry roi_align_batch, and roi_align at N=1",
         "launches_by_wrapper": served["launches"],
-        "n1_canvas": canvas_roi,
+        "entries": {"serving_shape": slice_roi, "n1_canvas": canvas_roi},
     }
     summary = {"serving": served, "profile": prof, "reference_check": ref,
                "seconds": time.perf_counter() - t_start}

@@ -12,7 +12,8 @@ Module names follow the reference AlexGTModel state-dict layout
 and `utils.weights.gt_state_dict_from_jax`'s output both load with
 `load_state_dict`. The trunk and classifier hold their weights in
 `compute_dtype` (bf16 in serving, as `DenseConfig.compute_dtype` says);
-ROI pooling and the LSTM head run in fp32.
+ROI pooling sums in fp32 and writes fc6's input in `compute_dtype` (the
+kernel's fused CHW epilogue); the LSTM head runs in fp32.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from imagecaptioning_tpu_torch.models.backbones.vgg import (VGGClassifierHead,
                                                             VGGFeatures)
 from imagecaptioning_tpu_torch.models.heads import LanguageHead
 from imagecaptioning_tpu_torch.ops import tokens
-from imagecaptioning_tpu_torch.ops.roi_align import roi_align_batch
+from imagecaptioning_tpu_torch.ops.roi_align import roi_align_batch_chw
 
 
 class GTDenseOutput(NamedTuple):
@@ -68,12 +69,13 @@ class GTDenseCaptioner(nn.Module):
                        gt_boxes: torch.Tensor) -> torch.Tensor:
         """images (N, H, W, 3) normalized, gt_boxes (N, R, 4) xcycwh in
         image coords → region codes (N, R, 4096) fp32."""
-        feats = self.features(images).float().contiguous()  # (N, Hf, Wf, C)
-        n, ih, iw = images.shape[0], images.shape[1], images.shape[2]
-        pooled = roi_align_batch(feats, gt_boxes.float().contiguous(),
-                                 (float(ih), float(iw)), self.roi_size)
-        # fc6 keeps the reference's CHW row order: flatten (C, oh, ow)
-        flat = pooled.permute(0, 1, 4, 2, 3).reshape(n, gt_boxes.shape[1], -1)
+        feats = self.features(images)     # (N, Hf, Wf, C) view, compute dtype
+        ih, iw = images.shape[1], images.shape[2]
+        # one pass from the trunk's output to fc6's input: pooled codes
+        # flattened in the reference's CHW row order, in fc6's dtype
+        flat = roi_align_batch_chw(feats, gt_boxes.float().contiguous(),
+                                   (float(ih), float(iw)), self.roi_size,
+                                   out_dtype=self.classifier[0].weight.dtype)
         return self.classifier(flat).float()
 
     def forward(self, images: torch.Tensor, gt_boxes: torch.Tensor,

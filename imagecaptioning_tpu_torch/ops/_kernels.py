@@ -36,12 +36,13 @@ def _nvcc() -> str:
                        "build the port's kernels")
 
 
-def build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` into `build/kernels/lib<name>-<hash>.so`
-    (once per source version) and return the library's path. The
-    compiler's output, including `-Xptxas -v`'s register and spill
-    report, is kept beside it as `<library>.log`."""
-    src = CSRC / f"{name}.cu"
+def build(name: str, src: Path | None = None) -> Path:
+    """Compile `csrc/<name>.cu` (or `src`) into
+    `build/kernels/lib<name>-<hash>.so` (once per source version) and
+    return the library's path. The compiler's output, including `-Xptxas
+    -v`'s register and spill report, is kept beside it as
+    `<library>.log`."""
+    src = src or CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
     if lib.exists():
@@ -60,8 +61,17 @@ def build(name: str) -> Path:
 @functools.cache
 def roi_align_lib() -> ctypes.CDLL:
     """The ROI-pooling kernel library, built on first call."""
-    lib = ctypes.CDLL(str(build("roi_align")))
+    return bind_roi_align(ctypes.CDLL(str(build("roi_align"))))
+
+
+def bind_roi_align(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from `roi_align.cu`: its
+    NHWC entry `roi_align_fwd` and its CHW entry `roi_align_chw_fwd`."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.roi_align_fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, f, f, p]
-    lib.roi_align_fwd.restype = ctypes.c_int
+    # features, boxes, out, n, r, hf, wf, c, oh, ow, ih, iw, feat_bf16,
+    # [out_bf16,] stream
+    shape = [p, p, p, i, i, i, i, i, i, i, f, f, i]
+    lib.roi_align_fwd.argtypes = [*shape, p]
+    lib.roi_align_chw_fwd.argtypes = [*shape, i, p]
+    lib.roi_align_fwd.restype = lib.roi_align_chw_fwd.restype = ctypes.c_int
     return lib

@@ -5,16 +5,22 @@ padding_mode='zeros')` with θ from the reference's BoxToAffine
 (`DenseCap/densecap/BoxToAffine.py:40-43`): θ_t = (2c − 1 − S)/(S − 1),
 θ_s = s/S, boxes xcycwh in 1-indexed image coordinates, features NHWC.
 
-- `roi_align_batch` / `roi_align`: the wrappers the model calls. On a
-  CUDA tensor they launch the hand-written kernel `csrc/roi_align.cu`
-  (which replaces the TPU kernels `roi_align_batch_pallas_fwd` and, as
-  its N=1 call, `roi_align_pallas_fwd`); on a CPU tensor they run the
-  plain version. Any other device raises. Each keeps a count of its
+- `roi_align_batch` / `roi_align`: the JAX kernels' interface, fp32
+  (N, R, oh, ow, C). On a CUDA tensor they launch the hand-written
+  kernel `csrc/roi_align.cu` (which replaces the TPU kernels
+  `roi_align_batch_pallas_fwd` and, as its N=1 call,
+  `roi_align_pallas_fwd`); on a CPU tensor they run the plain version.
+  Any other device raises.
+- `roi_align_batch_chw`: the same kernel with its fused epilogue, which
+  writes the VGG classifier's input, (N, R, C·oh·ow) CHW-flattened, in
+  fp32 or bf16. The GT captioner serves through it.
+- Features may be fp32 or bf16 (widened exactly, as JAX's
+  `astype(float32)`); boxes are fp32. Each wrapper keeps a count of its
   kernel launches in its `launches` attribute.
-- `roi_weights` / `roi_align_batch_reference`: the plain PyTorch
-  version — the JAX package's einsum form (`roi_align.py:40-87,
-  171-177`). The CPU tests and the on-card comparison use it; the card's
-  main path does not.
+- `roi_weights` / `roi_align_batch_reference` /
+  `roi_align_batch_chw_reference`: the plain PyTorch versions — the JAX
+  package's einsum form (`roi_align.py:40-87, 171-177`). The CPU tests
+  and the on-card comparison use them; the card's main path does not.
 
 Forward only: the backward (features AND boxes, as `_bbwd` keeps) is the
 training slice's `torch.autograd.Function`.
@@ -87,16 +93,22 @@ def roi_align_batch_reference(features: torch.Tensor, boxes: torch.Tensor,
     return torch.einsum("nrxw,nrywc->nryxc", cx, tmp)
 
 
-def _check(features: torch.Tensor, boxes: torch.Tensor) -> None:
+_DTYPES = (torch.float32, torch.bfloat16)
+_INT32_MAX = 2 ** 31 - 1
+_GRID_MAX = 65535
+
+
+def _check(features: torch.Tensor, boxes: torch.Tensor,
+           out_hw: Tuple[int, int]) -> None:
     if features.dim() != 4 or boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"want features (N, Hf, Wf, C) and boxes (N, R, 4), "
                          f"got {tuple(features.shape)} and {tuple(boxes.shape)}")
     if boxes.shape[0] != features.shape[0]:
         raise ValueError(f"{features.shape[0]} feature maps but "
                          f"{boxes.shape[0]} box slabs")
-    if features.dtype != torch.float32 or boxes.dtype != torch.float32:
-        raise TypeError(f"want float32 features and boxes, got "
-                        f"{features.dtype} and {boxes.dtype}")
+    if features.dtype not in _DTYPES or boxes.dtype != torch.float32:
+        raise TypeError(f"want float32 or bfloat16 features and float32 "
+                        f"boxes, got {features.dtype} and {boxes.dtype}")
     if features.device != boxes.device:
         raise ValueError(f"features on {features.device}, boxes on "
                          f"{boxes.device}")
@@ -105,36 +117,52 @@ def _check(features: torch.Tensor, boxes: torch.Tensor) -> None:
     if not (features.is_contiguous() and boxes.is_contiguous()):
         raise ValueError("features and boxes must be contiguous "
                          "(NHWC features, (N, R, 4) boxes)")
-
-
-def _launch(features: torch.Tensor, boxes: torch.Tensor,
-            image_hw: Tuple[float, float],
-            out_hw: Tuple[int, int]) -> torch.Tensor:
-    n, hf, wf, c = features.shape
+    n, _, _, c = features.shape
     r = boxes.shape[1]
+    n_out = n * r * c * out_hw[0] * out_hw[1]
+    if max(features.numel(), n_out) > _INT32_MAX:
+        raise ValueError(f"{features.numel()} feature and {n_out} output "
+                         f"elements: the kernel indexes in int32")
+    if max(n, r) > _GRID_MAX:
+        raise ValueError(f"{n} images of {r} boxes: the kernel's grid takes "
+                         f"at most {_GRID_MAX} of each")
+
+
+def _launch(entry: str, features: torch.Tensor, boxes: torch.Tensor,
+            image_hw: Tuple[float, float], out_hw: Tuple[int, int],
+            out: torch.Tensor, *flags: int) -> torch.Tensor:
+    n, hf, wf, c = features.shape
     oh, ow = out_hw
-    out = torch.empty((n, r, oh, ow, c), dtype=torch.float32,
-                      device=features.device)
     with torch.cuda.device(features.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels.roi_align_lib().roi_align_fwd(
+        err = getattr(_kernels.roi_align_lib(), entry)(
             features.data_ptr(), boxes.data_ptr(), out.data_ptr(),
-            n, r, hf, wf, c, oh, ow, float(image_hw[0]), float(image_hw[1]),
-            stream)
+            n, boxes.shape[1], hf, wf, c, oh, ow, float(image_hw[0]),
+            float(image_hw[1]), int(features.dtype == torch.bfloat16),
+            *flags, stream)
     if err != 0:
-        raise RuntimeError(f"roi_align_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     return out
+
+
+def _nhwc(features: torch.Tensor, boxes: torch.Tensor,
+          image_hw: Tuple[float, float],
+          out_hw: Tuple[int, int]) -> torch.Tensor:
+    n, r = boxes.shape[:2]
+    out = torch.empty((n, r, *out_hw, features.shape[-1]),
+                      dtype=torch.float32, device=features.device)
+    return _launch("roi_align_fwd", features, boxes, image_hw, out_hw, out)
 
 
 def roi_align_batch(features: torch.Tensor, boxes: torch.Tensor,
                     image_hw: Tuple[float, float],
                     out_hw: Tuple[int, int] = (7, 7)) -> torch.Tensor:
-    """features (N, Hf, Wf, C) fp32 contiguous, boxes (N, R, 4) fp32
-    xcycwh in image coords → (N, R, oh, ow, C) fp32."""
-    _check(features, boxes)
+    """features (N, Hf, Wf, C) fp32 or bf16 contiguous, boxes (N, R, 4)
+    fp32 xcycwh in image coords → (N, R, oh, ow, C) fp32."""
+    _check(features, boxes, out_hw)
     if features.device.type == "cpu":
         return roi_align_batch_reference(features, boxes, image_hw, out_hw)
-    out = _launch(features, boxes, image_hw, out_hw)
+    out = _nhwc(features, boxes, image_hw, out_hw)
     roi_align_batch.launches += 1
     return out
 
@@ -151,12 +179,52 @@ def roi_align(features: torch.Tensor, boxes: torch.Tensor,
         raise ValueError(f"want features (Hf, Wf, C) and boxes (B, 4), got "
                          f"{tuple(features.shape)} and {tuple(boxes.shape)}")
     features, boxes = features[None], boxes[None]
-    _check(features, boxes)
+    _check(features, boxes, out_hw)
     if features.device.type == "cpu":
         return roi_align_batch_reference(features, boxes, image_hw, out_hw)[0]
-    out = _launch(features, boxes, image_hw, out_hw)[0]
+    out = _nhwc(features, boxes, image_hw, out_hw)[0]
     roi_align.launches += 1
     return out
 
 
 roi_align.launches = 0
+
+
+def roi_align_batch_chw_reference(features: torch.Tensor, boxes: torch.Tensor,
+                                  image_hw: Tuple[float, float],
+                                  out_hw: Tuple[int, int] = (7, 7),
+                                  out_dtype: torch.dtype = torch.float32
+                                  ) -> torch.Tensor:
+    """Plain version of `roi_align_batch_chw`: the plain pooling, flattened
+    (C, oh, ow) per box and cast to `out_dtype`."""
+    n, r = boxes.shape[:2]
+    pooled = roi_align_batch_reference(features.float(), boxes, image_hw,
+                                       out_hw)
+    return pooled.permute(0, 1, 4, 2, 3).reshape(n, r, -1).to(out_dtype)
+
+
+def roi_align_batch_chw(features: torch.Tensor, boxes: torch.Tensor,
+                        image_hw: Tuple[float, float],
+                        out_hw: Tuple[int, int] = (7, 7),
+                        out_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
+    """The pooling of `roi_align_batch` written as the VGG classifier's
+    input: features (N, Hf, Wf, C) fp32 or bf16 contiguous, boxes
+    (N, R, 4) → (N, R, C·oh·ow) in `out_dtype` (fp32, or bf16 rounded to
+    nearest even), each row flattened in the reference's CHW order."""
+    _check(features, boxes, out_hw)
+    if out_dtype not in _DTYPES:
+        raise TypeError(f"want a float32 or bfloat16 output, got {out_dtype}")
+    if features.device.type == "cpu":
+        return roi_align_batch_chw_reference(features, boxes, image_hw,
+                                             out_hw, out_dtype)
+    n, r = boxes.shape[:2]
+    out = torch.empty((n, r, features.shape[-1] * out_hw[0] * out_hw[1]),
+                      dtype=out_dtype, device=features.device)
+    _launch("roi_align_chw_fwd", features, boxes, image_hw, out_hw, out,
+            int(out_dtype == torch.bfloat16))
+    roi_align_batch_chw.launches += 1
+    return out
+
+
+roi_align_batch_chw.launches = 0

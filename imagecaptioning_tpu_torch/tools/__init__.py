@@ -1,0 +1,1 @@
+"""Diagnostic tools of the port, run on a CUDA card."""

@@ -8,7 +8,10 @@ conftest (the card's machine has no JAX):
 Tolerance: 1e-5 absolute and relative between the ROI kernel and its
 plain version (fp32, same taps; rounding differs by an ulp or so, e.g.
 where the plain version divides by a scalar as a multiply by its
-reciprocal). 1e-4 between the tiny model on the card and on the CPU
+reciprocal). bf16 codes of the fused CHW entry: within one bf16 ulp of
+the plain version's fp32 codes rounded to bf16 (the two fp32 sums may
+differ in the last bit, which can move the rounding by one step). 1e-4
+between the tiny model on the card and on the CPU
 (fp32 with TF32 off; cuDNN and cuBLAS sum in another order).
 """
 
@@ -64,6 +67,47 @@ def test_kernel_matches_plain(card, n, r, hf, wf, c, ih, iw, out_hw):
     one = port_roi.roi_align(feats[0], boxes[0], (ih, iw), out_hw)
     assert port_roi.roi_align.launches == before + 1
     torch.testing.assert_close(one, want[0], **TOL)
+
+
+def _within_one_bf16_ulp(got, want):
+    """Elementwise |got - want| <= one bf16 ulp at the larger magnitude."""
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    return (g - w).abs() <= torch.ldexp(torch.ones_like(g), e - 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("feat_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,r,hf,wf,c,ih,iw,out_hw", [
+    (3, 9, 8, 8, 4, 128.0, 128.0, (7, 7)),
+    (2, 40, 11, 17, 37, 176.0, 272.0, (5, 9)),
+    (8, 32, 16, 16, 512, 512.0, 512.0, (7, 7)),
+    (1, 32, 22, 22, 512, 720.0, 720.0, (7, 7)),
+])
+def test_chw_kernel_matches_plain(card, n, r, hf, wf, c, ih, iw, out_hw,
+                                  feat_dtype, out_dtype):
+    rng = np.random.RandomState(n + r + c)
+    feats = torch.from_numpy(rng.randn(n, hf, wf, c).astype(np.float32))
+    feats = feats.to(card, feat_dtype)
+    boxes = _boxes(rng, n, r, ih, iw).to(card)
+    before = port_roi.roi_align_batch_chw.launches
+    got = port_roi.roi_align_batch_chw(feats, boxes, (ih, iw), out_hw,
+                                       out_dtype)
+    torch.cuda.synchronize()
+    assert port_roi.roi_align_batch_chw.launches == before + 1
+    assert got.shape == (n, r, c * out_hw[0] * out_hw[1])
+    assert got.dtype == out_dtype
+    want = port_roi.roi_align_batch_chw_reference(feats, boxes, (ih, iw),
+                                                  out_hw, out_dtype)
+    if out_dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        assert bool(_within_one_bf16_ulp(got, want).all())
+    # the NHWC entry takes bf16 features too, and sums the same taps
+    nhwc = port_roi.roi_align_batch(feats, boxes, (ih, iw), out_hw)
+    chw = nhwc.permute(0, 1, 4, 2, 3).reshape(n, r, -1).to(out_dtype)
+    assert torch.equal(got, chw)
 
 
 @pytest.mark.cuda
@@ -126,7 +170,7 @@ def test_infer_cli_on_card_matches_cpu(card, tmp_path):
             "--max-regions", "4", "--beam", "3", "--set", "vgg_stages=2",
             "input_encoding_size=16", "rnn_size=16", "use_lstm=true",
             "compute_dtype=float32"]
-    before = roi.roi_align_batch.launches
+    before = roi.roi_align_batch_chw.launches
     on_card = infer.main(args)                 # default device: the card
-    assert roi.roi_align_batch.launches == before + 2
+    assert roi.roi_align_batch_chw.launches == before + 2
     assert on_card == infer.main(args + ["--device", "cpu"])
