@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Card smoke run of the PyTorch port (imagecaptioning_tpu_torch): GT-box
-dense-caption serving on one CUDA card.
+dense-caption serving and training on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
 1. card name and power limit; TF32 off for cuDNN and cuBLAS;
-2. build the ROI-pooling kernel from csrc/roi_align.cu (timed, set-up),
-   with nvcc's register and spill report;
+2. build the ROI-pooling kernels from csrc/roi_align.cu (forward) and
+   csrc/roi_align_bwd.cu (backward), one nvcc each, started together
+   (timed, set-up), with nvcc's register and spill reports;
 3. each entry of the kernel against its plain PyTorch version at the
    serving shape (8 images × 32 boxes, 16×16×512 map, the 512² images'
    VGG16 output) and the infer CLI's canvas shape (1 × 32 boxes,
@@ -38,11 +39,40 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    entries, and a profile of one greedy and one beam decode;
 6. the same full-width weights in fp32 on the card against the CPU on a
    small input: teacher-forced logits within 1e-4 (the fused entry
-   writes fp32 codes there).
+   writes fp32 codes there);
+7. the backward kernels (`roi_align_bwd_features`, kernel A, and
+   `roi_align_bwd_boxes`, kernel B) against the plain backward (autograd
+   through the plain forward) at the training shape (4 × 32 boxes,
+   22×22×512, 720² images) and the serving shape, edge boxes included:
+   bf16 map with bf16 CHW gradient (as training calls it), fp32 with fp32
+   CHW, fp32 with fp32 NHWC. d_features: fp32 max-abs ≤ 1e-5, bf16
+   within one bf16 ulp; d_boxes within 1e-4 relative to the largest
+   component; both bitwise equal on a second launch. Timed as in 3 and 5
+   (events hot and cold, CUPTI, host enqueue), beside the plain version,
+   autograd's backward through affine_grid+grid_sample (both gradients)
+   and the bound (bytes over 3.35 TB/s against the flops over 67 TFLOP/s);
+8. full-width training: the same model with fp32 master weights and bf16
+   compute, Adam in the default `DenseConfig`'s three groups, over a
+   `VGDataLoader` of 10 in-memory 720² uint8 images (8 in the train split,
+   so the encoder's lr turns on at update 8, inside the run) × 32 regions
+   with captions over a 10,000-word vocabulary, batch 4: 2 warm-up steps,
+   then 3 windows of 12 steps, each timed by CUDA events (loss per step;
+   steps/s, images/s and regions/s at the median window; peak memory;
+   each ROI wrapper's launches: kernel A once per step, kernel B never),
+   one profiled step (the card's busy time: its kernels and copies), and
+   a full checkpoint saved and restored bitwise;
+9. one fp32 train step at full width on the card against the CPU from
+   the same weights on a small input (dropout off on both): the loss
+   within 1e-4 relative and every parameter after the update within
+   2·lr of the CPU's (a first Adam update moves a weight by at most lr;
+   the sign of a gradient inside rounding noise may differ), with at
+   most 1e-5 of all weights more than 1e-7 apart.
 The last three lines: the card as nvidia-smi reports it, one JSON line of
 per-kernel numbers, and {"ok": true, "device": ...}. The profiler's full
-tables go to <out-dir>/chip_smoke_profile.txt (`--out-dir`, default
-build/chip_smoke).
+tables go to <out-dir>/chip_smoke_profile.txt and
+<out-dir>/chip_smoke_train_profile.txt (`--out-dir`, default
+build/chip_smoke), where the checkpoint of phase 8 is written and
+removed.
 """
 
 from __future__ import annotations
@@ -66,7 +96,20 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 FP32_FLOPS = 67e12            # H100 SXM, fp32 outside the tensor cores
 FLUSH_BYTES = 128 << 20       # > the H100's 50 MB L2
 HEAD_START_CYCLES = 400_000   # ~0.2 ms at the H100's 1.98 GHz boost clock
-ROI_WRAPPERS = ("roi_align_batch_chw", "roi_align_batch", "roi_align")
+ROI_WRAPPERS = ("roi_align_batch_chw", "roi_align_batch", "roi_align",
+                "roi_align_bwd_features", "roi_align_bwd_boxes")
+GRAD_REL_TOL = 1e-4           # d_boxes, relative to the largest component
+TRAIN_IMAGES, TRAIN_SPLIT, TRAIN_IMAGE = 10, 8, 720
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_WINDOWS = 4, 2, 12, 3
+LOSS_REL_TOL = 1e-4
+# kinds of the card's work in a profiled training step, by kernel name
+# (the first match wins; the rest is elementwise work and reductions)
+KERNEL_KINDS = (("convolution (cuDNN)", ("fprop", "dgrad", "wgrad")),
+                ("matrix product (cuBLAS)", ("gemm",)),
+                ("optimizer (foreach)", ("multi_tensor_apply",)),
+                ("ROI kernels", ("roi_",)),
+                ("max-pool", ("max_pool",)),
+                ("host-to-card copy", ("Memcpy HtoD",)))
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -192,12 +235,13 @@ def compare(got, want) -> dict:
             "bitwise_equal_share": float(same.float().mean())}
 
 
-def roofline(inputs, out) -> dict:
+def roofline(inputs, out, flops=None) -> dict:
     """The least time for the call: each input read once and the output
-    written once at their own element sizes, against 6 flops per output."""
+    written once at their own element sizes, against its fp32 flops (by
+    default the forward's 6 per output)."""
     nbytes = sum(t.numel() * t.element_size() for t in (*inputs, out))
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 6 * out.numel() / FP32_FLOPS * 1e3
+    ops_ms = (6 * out.numel() if flops is None else flops) / FP32_FLOPS * 1e3
     return {"bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -486,6 +530,353 @@ def reference_check(dev, model, build, api):
     return res
 
 
+def grid_sample_roi_backward(features, boxes, image_hw, out_hw, grad):
+    """autograd's backward through the reference's formulation
+    (BoxToAffine → affine_grid → grid_sample) with respect to the map and
+    the boxes, for timing beside the backward kernels only: a graph kept
+    for reuse, and a call that runs its backward at `grad` (N, R, oh, ow,
+    C)."""
+    import torch.nn.functional as F
+    n, _, _, c = features.shape
+    r = boxes.shape[1]
+    (ih, iw), (oh, ow) = image_hw, out_hw
+    nchw = features.float().permute(0, 3, 1, 2).detach().requires_grad_()
+    b = boxes.detach().clone().requires_grad_()
+    xc, yc, w, h = b.reshape(-1, 4).unbind(-1)
+    zero = torch.zeros_like(xc)
+    theta = torch.stack([
+        torch.stack([w / iw, zero, (2 * xc - 1 - iw) / (iw - 1)], -1),
+        torch.stack([zero, h / ih, (2 * yc - 1 - ih) / (ih - 1)], -1)], 1)
+    grid = F.affine_grid(theta, [n * r, 1, oh, ow], align_corners=False)
+    out = F.grid_sample(nchw, grid.reshape(n, r * oh, ow, 2),
+                        align_corners=False)
+    g = grad.permute(0, 4, 1, 2, 3).reshape(n, c, r * oh, ow).contiguous()
+    return lambda: torch.autograd.grad(out, (nchw, b), g, retain_graph=True)
+
+
+def compare_boxes(got, want) -> dict:
+    """d_boxes against the plain version's: max |got − want| within
+    GRAD_REL_TOL of the largest |want| (raises otherwise)."""
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    if not rel <= GRAD_REL_TOL:
+        raise AssertionError(f"d_boxes vs plain: relative err {rel} > "
+                             f"{GRAD_REL_TOL}")
+    return {"max_abs_err": err, "max_rel_err": rel,
+            "tolerance": f"{GRAD_REL_TOL} relative to max |d_boxes|"}
+
+
+def check_roi_backward(dev, roi, n, r, hf, c, image, iters, flush):
+    """Both backward kernels vs the plain backward at one shape, with their
+    event times, bounds, the plain version's and the library's times →
+    ({case: numbers}, {case: the call}), cases named "<entry> <maps and
+    gradient>" (raises if a kernel disagrees or is not deterministic)."""
+    rng = np.random.RandomState(SEED + 100 + n)
+    f32 = torch.from_numpy(rng.randn(n, hf, hf, c).astype(np.float32)).to(dev)
+    boxes = torch.from_numpy(edge_boxes(rng, n, r, image, image)).to(dev)
+    g = torch.from_numpy(rng.randn(n, r, 7, 7, c).astype(np.float32)).to(dev)
+    g_chw = g.permute(0, 1, 4, 2, 3).reshape(n, r, -1).contiguous()
+    hw = (float(image), float(image))
+    bf16 = torch.bfloat16
+    inputs = {"bf16 map, bf16 CHW grad": (f32.to(bf16), g_chw.to(bf16)),
+              "fp32 map, fp32 CHW grad": (f32, g_chw),
+              "fp32 map, fp32 NHWC grad": (f32, g)}
+    lib_call = grid_sample_roi_backward(f32, boxes, hw, (7, 7), g)
+    lib = {"library_ms": device_ms(lib_call, iters // 4, flush),
+           "library_ms_hot": device_ms(lib_call, iters // 4)}
+    shape = f"N={n} R={r} {hf}x{hf}x{c} image {image} -> 7x7"
+    def entries(feats, grad):
+        """entry → (kernel call, plain call, its check, what the kernel
+        reads, its fp32 flops: 4 FMAs per gradient element for A; for B
+        two tap differences, two weighted sums and two FMAs)."""
+        return {
+            "roi_align_bwd_features": (
+                lambda: roi.roi_align_bwd_features(feats, boxes, grad, hw),
+                lambda: roi.roi_align_backward_reference(
+                    feats, boxes, grad, hw, need_boxes=False)[0],
+                compare, (grad, boxes), 8 * grad.numel()),
+            "roi_align_bwd_boxes": (
+                lambda: roi.roi_align_bwd_boxes(feats, boxes, grad, hw),
+                lambda: roi.roi_align_backward_reference(
+                    feats, boxes, grad, hw, need_features=False)[1],
+                compare_boxes, (feats, boxes, grad), 14 * grad.numel()),
+        }
+    out, calls = {}, {}
+    for name, (feats, grad) in inputs.items():
+        for entry, (kernel, plain, check, reads, flops) in entries(
+                feats, grad).items():
+            got = kernel()
+            again = kernel()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{entry} {name}: two launches differ")
+            res = {"shape": shape, **check(got, plain()),
+                   "deterministic": True,
+                   **roofline(reads, got, flops),
+                   **timings(kernel, iters, flush),
+                   "plain_ms": cuda_ms(plain, iters // 4), **lib}
+            res["cold_share_of_bound"] = res["bound_ms"] / res["ms_cold"]
+            case = f"{entry} {name}"
+            print(f"roi backward {case}, {shape}: {json.dumps(res)}",
+                  flush=True)
+            out[case], calls[case] = res, kernel
+    return out, calls
+
+
+def make_train_data(rng):
+    """VG arrays held in memory → (arrays, dicts): TRAIN_IMAGES uint8
+    images of TRAIN_IMAGE², N_REGIONS regions each (edge boxes included),
+    captions of 2..SEQ words over a VOCAB-word vocabulary; the first
+    TRAIN_SPLIT images are the train split."""
+    n, r, s = TRAIN_IMAGES, N_REGIONS, TRAIN_IMAGE
+    m = n * r
+    lengths = rng.randint(2, SEQ + 1, m)
+    labels = rng.randint(1, VOCAB + 1, (m, SEQ)).astype(np.int32)
+    labels[np.arange(SEQ)[None] >= lengths[:, None]] = 0
+    split = np.full(n, 1, np.int32)
+    split[:TRAIN_SPLIT] = 0
+    split[-1] = 2
+    first = np.arange(n, dtype=np.int32) * r + 1
+    arrays = {
+        "images": rng.randint(0, 256, (n, s, s, 3), dtype=np.uint8),
+        "image_heights": np.full(n, s, np.int32),
+        "image_widths": np.full(n, s, np.int32),
+        "labels": labels, "lengths": lengths.astype(np.int32),
+        "boxes": edge_boxes(rng, n, r, s, s).reshape(m, 4),
+        "img_to_first_box": first, "img_to_last_box": first + r - 1,
+        "box_to_img": np.repeat(np.arange(1, n + 1, dtype=np.int32), r),
+        "split": split,
+        "original_heights": np.full(n, s, np.int32),
+        "original_widths": np.full(n, s, np.int32),
+    }
+    words = [f"w{i}" for i in range(VOCAB)]
+    info = {"token_to_idx": {w: i + 1 for i, w in enumerate(words)},
+            "idx_to_token": {str(i + 1): w for i, w in enumerate(words)}}
+    return arrays, info
+
+
+def same_state(a, b) -> bool:
+    """Two (optimizer or model) state dicts equal, tensors bitwise."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_state(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(same_state, a, b))
+    if isinstance(a, torch.Tensor):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu()))
+    return a == b
+
+
+def train(dev, roi, out_dir: Path):
+    """Full-width training (phase 8) → its numbers (raises on a failed
+    check)."""
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    from imagecaptioning_tpu_torch.config.dense_configs import DenseConfig
+    from imagecaptioning_tpu_torch.data.vg_loader import VGDataLoader
+    from imagecaptioning_tpu_torch.train import dense_driver as dd
+    from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
+    from imagecaptioning_tpu_torch.utils.weights import seeded_init_
+
+    arrays, info = make_train_data(np.random.RandomState(SEED + 2))
+    loader = VGDataLoader(arrays=arrays, info=info)
+    cfg = DenseConfig(use_lstm=True, batch_size=TRAIN_BATCH,
+                      max_regions=N_REGIONS)
+    # as train_gt: the train split's image count, read as an update count
+    finetune_start = len(loader.train_ix)
+
+    def build():
+        model = dd.build_gt_model(cfg, VOCAB, SEQ, dev)
+        return model, dd.make_dense_optimizer(cfg, model, finetune_start)
+    model, opt = build()
+    seeded_init_(model, SEED)
+    gen = torch.Generator(dev)
+    gen.manual_seed(SEED + 1)
+    step = dd.make_gt_train_step(model, opt, cfg.use_curriculum_learning,
+                                 gen)
+
+    def batches():
+        while True:
+            yield from loader.padded_batches(0, TRAIN_BATCH, N_REGIONS)
+    feed = batches()
+    losses = []
+
+    def run(k):
+        for _ in range(k):
+            losses.append(step(*dd.to_device(next(feed), dev), 1.0))
+    encoder = model.features[dd.FROZEN_FEATURES].weight   # conv3_1
+    encoder0 = encoder.detach().clone()
+    run(TRAIN_WARMUP)
+    torch.cuda.synchronize()
+    encoder_still_before = torch.equal(encoder, encoder0)
+    for name in ROI_WRAPPERS:
+        getattr(roi, name).launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    # the step's host side (a Python LSTM loop and autograd) varies run to
+    # run: several windows, each timed by events
+    window_ms = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WINDOWS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(TRAIN_STEPS)
+        end.record()
+        torch.cuda.synchronize()
+        window_ms.append(start.elapsed_time(end) / TRAIN_STEPS)
+    wall_s = time.perf_counter() - t0
+    launches = {name: getattr(roi, name).launches for name in ROI_WRAPPERS}
+    step_ms = float(np.median(window_ms))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    encoder_moved_after = not torch.equal(encoder, encoder0)
+    loss_values = [float(v) for v in losses]
+    if not all(np.isfinite(loss_values)):
+        raise AssertionError(f"non-finite training loss: {loss_values}")
+    steps = TRAIN_WINDOWS * TRAIN_STEPS
+    if launches["roi_align_bwd_features"] != steps or launches[
+            "roi_align_batch_chw"] != steps or launches[
+            "roi_align_bwd_boxes"] != 0:
+        raise AssertionError(f"ROI launches in {steps} steps: {launches}")
+    if not (encoder_still_before and encoder_moved_after):
+        raise AssertionError(
+            f"encoder lr boundary at update {finetune_start}: unchanged "
+            f"after {TRAIN_WARMUP} updates {encoder_still_before}, moved "
+            f"after {TRAIN_WARMUP + steps} {encoder_moved_after}")
+
+    with prof(activities=[ProfilerActivity.CPU,
+                          ProfilerActivity.CUDA]) as p:
+        t1 = time.perf_counter()
+        run(1)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t1) * 1e3
+    events = p.key_averages()
+    # the card's own work: kernels and copies, not the ranges the
+    # optimizer annotates around its kernels, nor the profiler's buffers
+    kernels = sorted((e for e in events
+                      if str(e.device_type).endswith("CUDA")
+                      and not e.is_user_annotation
+                      and e.key != "Activity Buffer Request"),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    by_kind = {}
+    for e in kernels:
+        kind = next((k for k, words in KERNEL_KINDS
+                     if any(w in e.key for w in words)),
+                    "elementwise, reductions, other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "chip_smoke_train_profile.txt").write_text(events.table(
+        sort_by="self_device_time_total", row_limit=40))
+
+    # a full checkpoint, saved and restored into a fresh model and
+    # optimizer, must give back the same bits
+    done = TRAIN_WARMUP + steps + 1
+    cursor = done % (TRAIN_SPLIT // TRAIN_BATCH) * TRAIN_BATCH
+    path = out_dir / "chip_smoke_train.ckpt"
+    t1 = time.perf_counter()
+    ckptlib.save_checkpoint(str(path), dd.gt_train_state(
+        model, opt, done, gen, cursor))
+    save_s = time.perf_counter() - t1
+    ckpt_gb = path.stat().st_size / 1e9
+    model2, opt2 = build()
+    gen2 = torch.Generator(dev)
+    restored = dd.load_gt_train_state(
+        ckptlib.restore_checkpoint(str(path), torch.device("cpu")),
+        model2, opt2, gen2)
+    path.unlink()
+    round_trip = (restored == (done, cursor)
+                  and same_state(model.state_dict(), model2.state_dict())
+                  and same_state(opt.state_dict(), opt2.state_dict())
+                  and torch.equal(gen.get_state(), gen2.get_state()))
+    if not round_trip:
+        raise AssertionError("the restored checkpoint differs from the "
+                             "saved state")
+    del model2, opt2
+
+    res = {
+        "images": f"{TRAIN_BATCH} x {TRAIN_IMAGE}^2 uint8, {N_REGIONS} "
+                  f"regions each, vocab {VOCAB}, seq {SEQ}",
+        "steps_timed": steps, "window_step_ms": window_ms,
+        "step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
+        "images_per_s": TRAIN_BATCH / step_ms * 1e3,
+        "regions_per_s": TRAIN_BATCH * N_REGIONS / step_ms * 1e3,
+        "timed_wall_s": wall_s, "peak_mem_gb": peak_gb,
+        "loss_per_step": loss_values, "launches": launches,
+        "encoder_lr_boundary_update": finetune_start,
+        "encoder_unchanged_before_boundary": encoder_still_before,
+        "encoder_moved_after_boundary": encoder_moved_after,
+        "profiled_step": {
+            "wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+            # the profiler slows the host, so the idle share is read
+            # against an unprofiled step's time
+            "device_idle_share_of_timed_step": 1 - busy_ms / step_ms,
+            "device_ms_by_kind": by_kind,
+            "kernels_and_copies": sum(e.count for e in kernels),
+            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                               for e in kernels[:10]}},
+        "checkpoint": {"gb": ckpt_gb, "save_s": save_s,
+                       "round_trip_bitwise": round_trip},
+    }
+    print(f"training: {json.dumps(res)}", flush=True)
+    return res
+
+
+def train_step_check(dev):
+    """One fp32 train step at full width on the card vs the CPU from the
+    same weights, small input, dropout off on both (phase 9)."""
+    from imagecaptioning_tpu_torch.config.dense_configs import DenseConfig
+    from imagecaptioning_tpu_torch.train import dense_driver as dd
+    from imagecaptioning_tpu_torch.utils.weights import seeded_init_
+
+    cfg = DenseConfig(use_lstm=True, compute_dtype="float32")
+    rng = np.random.RandomState(SEED + 3)
+    images = torch.from_numpy(rng.randint(0, 256, (2, 96, 96, 3),
+                                          dtype=np.uint8))
+    boxes = torch.from_numpy(edge_boxes(rng, 2, 8, 96, 96))
+    labels = torch.from_numpy(rng.randint(1, VOCAB + 1, (2, 8, SEQ)))
+    labels[:, :, 9:] = 0
+    mask = torch.ones(2, 8)
+    mask[1, 7] = 0.0
+    twins = [dd.build_gt_model(cfg, VOCAB, SEQ, d)
+             for d in (torch.device("cpu"), dev)]
+    twins[1].load_state_dict(seeded_init_(twins[0], SEED).state_dict())
+    losses = []
+    for model in twins:
+        d = next(model.parameters()).device
+        model.classifier[2].p = 0.0     # the two generators draw apart
+        # the encoder trains from the first update, so every group moves
+        opt = dd.make_dense_optimizer(cfg, model, 0)
+        step = dd.make_gt_train_step(model, opt, False,
+                                     torch.Generator(d).manual_seed(SEED))
+        losses.append(float(step(images.to(d), boxes.to(d), labels.to(d),
+                                 mask.to(d), 1.0)))
+    loss_rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    worst, worst_name, off, total = 0.0, "", 0, 0
+    cpu_params = dict(twins[0].named_parameters())
+    for name, p in twins[1].named_parameters():
+        d = (p.detach().cpu() - cpu_params[name].detach()).abs()
+        if float(d.max()) > worst:
+            worst, worst_name = float(d.max()), name
+        off += int((d > 1e-7).sum())
+        total += d.numel()
+    res = {"loss_cpu": losses[0], "loss_card": losses[1],
+           "loss_rel_err": loss_rel, "param_max_abs_diff": worst,
+           "param_max_abs_diff_at": worst_name,
+           "params_over_1e-7_share": off / total,
+           "tolerance": f"loss {LOSS_REL_TOL} relative; params within "
+                        f"2 lr = {2 * cfg.learning_rate}, at most 1e-5 of "
+                        f"them more than 1e-7 apart"}
+    print(f"train step (fp32 card vs CPU, full width): {json.dumps(res)}",
+          flush=True)
+    if not (loss_rel <= LOSS_REL_TOL and worst <= 2 * cfg.learning_rate
+            + 1e-7 and off / total <= 1e-5):
+        raise AssertionError(f"card train step differs from the CPU's: "
+                             f"{res}")
+    return res
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out-dir", type=Path, default=Path("build/chip_smoke"),
@@ -514,12 +905,16 @@ def main() -> int:
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     t0 = time.perf_counter()
-    lib = _kernels.build("roi_align")
+    libs = _kernels.build_all(["roi_align", "roi_align_bwd"])
     _kernels.roi_align_lib()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s -> {lib.name}")
-    print("".join(line for line in Path(f"{lib}.log").read_text()
-                  .splitlines(keepends=True)
-                  if any(w in line for w in ("Used", "spill", "properties"))))
+    _kernels.roi_align_bwd_lib()
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s -> "
+          f"{', '.join(lib.name for lib in libs.values())}")
+    for lib in libs.values():
+        print("".join(line for line in Path(f"{lib}.log").read_text()
+                      .splitlines(keepends=True)
+                      if any(w in line for w in ("Used", "spill",
+                                                 "properties"))))
 
     flush = torch.zeros(2, FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     print(f"events around no work: {device_ms(lambda: None, 50)} ms")
@@ -546,6 +941,17 @@ def main() -> int:
     add_cupti(canvas_roi, canvas_calls, 200, flush)
     prof = profile(run_beam, run_greedy, args.out_dir)
     ref = reference_check(dev, model, build, api)
+    del model, run_beam, run_greedy
+
+    train_bwd, train_bwd_calls = check_roi_backward(
+        dev, roi, TRAIN_BATCH, N_REGIONS, TRAIN_IMAGE // 32, 512,
+        TRAIN_IMAGE, 200, flush)
+    serve_bwd, serve_bwd_calls = check_roi_backward(
+        dev, roi, N_IMAGES, N_REGIONS, IMAGE // 32, 512, IMAGE, 200, flush)
+    add_cupti(train_bwd, train_bwd_calls, 200, flush)
+    add_cupti(serve_bwd, serve_bwd_calls, 200, flush)
+    trained = train(dev, roi, args.out_dir)
+    step_check = train_step_check(dev)
 
     # the serving path's kernel: the fused entry, bf16 map → bf16 codes
     main_case = slice_roi["roi_align_batch_chw bf16->bf16 CHW"]
@@ -570,11 +976,44 @@ def main() -> int:
         "launches_by_wrapper": served["launches"],
         "entries": {"serving_shape": slice_roi, "n1_canvas": canvas_roi},
     }
+    kernel["launches_training"] = trained["launches"]["roi_align_batch_chw"]
+    backward = []
+    for name in ("roi_align_bwd_features", "roi_align_bwd_boxes"):
+        # the training path's case: bf16 map, bf16 CHW gradient from fc6
+        main_bwd = train_bwd[f"{name} bf16 map, bf16 CHW grad"]
+        backward.append({
+            "name": name, "route": "cuda",
+            "source": "imagecaptioning_tpu_torch/csrc/roi_align_bwd.cu",
+            "replaces": "imagecaptioning_tpu/ops/roi_align.py:234-242",
+            "launches": trained["launches"][name],
+            "main_path": ("GT training, once a step"
+                          if name == "roi_align_bwd_features" else
+                          "none yet: GT boxes are data, so GT training "
+                          "never asks for d_boxes; the RPN slice will"),
+            "max_abs_err": max(v["max_abs_err"] for k, v in
+                               {**train_bwd, **serve_bwd}.items()
+                               if k.startswith(name + " ")),
+            "tolerance": main_bwd["tolerance"],
+            "deterministic": True,
+            "ms": main_bwd["ms_cold"],
+            **{k: main_bwd[k] for k in (
+                "ms_hot", "kernel_ms_cold", "kernel_ms_hot", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "library_ms_hot",
+                "bytes", "shape")},
+            "library": "autograd backward of affine_grid+grid_sample "
+                       "(both gradients, fp32 map)",
+            "entries": {
+                "training_shape": {k: v for k, v in train_bwd.items()
+                                   if k.startswith(name + " ")},
+                "serving_shape": {k: v for k, v in serve_bwd.items()
+                                  if k.startswith(name + " ")}},
+        })
     summary = {"serving": served, "profile": prof, "reference_check": ref,
+               "training": trained, "train_step_check": step_check,
                "seconds": time.perf_counter() - t_start}
     print(f"summary: {json.dumps(summary)}")
     print(smi)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel, *backward]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

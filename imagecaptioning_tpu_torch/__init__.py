@@ -5,19 +5,26 @@ its counterpart's path and names, and the tests hold each one against
 it on the same inputs. This package imports `torch`, `numpy` and
 (lazily) `PIL`, and nothing of JAX or of the JAX package.
 
-Ported so far: the ground-truth-box dense captioner's serving path with
-the LSTM head (VGG16 trunk → hand-written CUDA ROI-pooling kernel → VGG
-classifier head → LSTM head → greedy/beam region decode), driven by
-``python -m imagecaptioning_tpu_torch.infer --model-type gt``.
+Ported so far: the ground-truth-box dense captioner with the LSTM head,
+serving (VGG16 trunk → hand-written CUDA ROI-pooling kernel → VGG
+classifier head → LSTM head → greedy/beam region decode, driven by
+``python -m imagecaptioning_tpu_torch.infer --model-type gt``) and
+training (the ROI backward as hand-written CUDA kernels, driven by
+``python -m imagecaptioning_tpu_torch.traingt``).
 
 Layout
 ------
 - ``config``    `DenseConfig` (copy of the JAX package's dense config)
-- ``data``      vocab, ImageNet normalization, image processing/proposals
-- ``ops``       tokens, LSTM, ROI pooling (+ its CUDA kernel in ``csrc``)
+- ``data``      vocab and tokenizer, the VG loader and ImageNet
+                normalization, synthetic VG data, image processing
+- ``ops``       tokens, loss, LSTM, ROI pooling forward and backward (+
+                their CUDA kernels in ``csrc``)
 - ``models``    VGG16, the LSTM caption head, the GT dense captioner,
                 fixed-shape greedy/beam decoding and the region decode API
-- ``utils``     device resolution, weights carried over from the JAX tree
+- ``train``     the GT training driver (optimizer groups, train step)
+- ``eval``      the GT mAP/METEOR evaluator and its eval loop
+- ``utils``     device resolution, weights and training state carried
+                over from the JAX tree, checkpoints, JSON histories
 """
 
 __version__ = "0.1.0"

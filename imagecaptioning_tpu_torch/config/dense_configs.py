@@ -133,6 +133,19 @@ class DenseConfig:
         return getattr(self, key, default)
 
 
+def apply_overrides(cfg: DenseConfig, pairs) -> DenseConfig:
+    """`KEY=VALUE` strings → config fields, typed like the defaults (the
+    root `traingt.py`'s parsing)."""
+    for key, value in (kv.split("=", 1) for kv in pairs):
+        cur = getattr(cfg, key)
+        if isinstance(cur, bool):
+            value = value.lower() in ("1", "true", "yes", "on")
+        elif isinstance(cur, (int, float)):
+            value = type(cur)(value)
+        cfg = cfg.replace(**{key: value})
+    return cfg
+
+
 def get_gt_config() -> DenseConfig:
     """Reference `AlexGTModel/train_opts.get_config` (use_lstm=False)."""
     return DenseConfig(model_type="gt", use_lstm=False)

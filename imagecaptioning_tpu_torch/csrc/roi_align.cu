@@ -49,6 +49,8 @@
 // What holds it back on the card, measured, is in PERF.md (Findings): the
 // block's instruction stream and its staged write-out, not device memory.
 //
+// The taps (Tap, axis_taps) are in roi_taps.cuh, shared with the backward.
+//
 // Interface: plain C entry points (bound with ctypes). They launch on the
 // caller's stream, allocate nothing, do not synchronise, and return
 // cudaGetLastError() so a refused launch is reported to the caller.
@@ -58,54 +60,13 @@
 
 #include <cstdint>
 
+#include "roi_taps.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxGrid = 65535;         // gridDim.y and gridDim.z
 constexpr int kSmemMax = 48 * 1024;     // dynamic shared memory without opt-in
-
-struct Tap {
-  int lo, hi;        // element offsets of the two taps (0 where outside)
-  float w_lo, w_hi;  // their weights (0 where outside)
-};
-
-// The two taps of output index j along one axis, with `_interp_weights`'
-// arithmetic in the same order and rounding (no FMA contraction):
-//   theta_t = (2c - 1 - S) / (S - 1),  theta_s = s / S,
-//   g = (2j + 1) / out - 1,  u = theta_s * g + theta_t,
-//   p = ((u + 1) * in - 1) / 2,  p0 = floor(p),  frac = p - p0.
-// A tap outside [0, in) gets weight 0 and offset 0 (a valid address whose
-// value is never used). Offsets are
-// the pixel index times `stride`, the axis' stride in elements.
-__device__ __forceinline__ Tap axis_taps(float center, float size, int j,
-                                         int out, int in, float image,
-                                         int stride) {
-  const float theta_t =
-      __fdiv_rn(__fsub_rn(__fsub_rn(__fmul_rn(2.0f, center), 1.0f), image),
-                __fsub_rn(image, 1.0f));
-  const float theta_s = __fdiv_rn(size, image);
-  const float g = __fsub_rn(
-      __fdiv_rn(__fadd_rn(__fmul_rn(2.0f, static_cast<float>(j)), 1.0f),
-                static_cast<float>(out)),
-      1.0f);
-  const float u = __fadd_rn(__fmul_rn(theta_s, g), theta_t);
-  // halving is exact, so x * 0.5 is the correctly rounded x / 2, and the
-  // chain waits on one division less
-  const float p = __fmul_rn(
-      __fsub_rn(__fmul_rn(__fadd_rn(u, 1.0f), static_cast<float>(in)), 1.0f),
-      0.5f);
-  const float p0 = floorf(p);
-  const float frac = __fsub_rn(p, p0);
-  const float last = static_cast<float>(in - 1);
-  Tap t;
-  const bool lo_ok = p0 >= 0.0f && p0 <= last;
-  const bool hi_ok = p0 >= -1.0f && p0 <= last - 1.0f;
-  t.lo = lo_ok ? static_cast<int>(p0) * stride : 0;
-  t.hi = hi_ok ? (static_cast<int>(p0) + 1) * stride : 0;
-  t.w_lo = lo_ok ? __fsub_rn(1.0f, frac) : 0.0f;
-  t.w_hi = hi_ok ? frac : 0.0f;
-  return t;
-}
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {

@@ -26,11 +26,13 @@ import numpy as np
 import torch
 
 from imagecaptioning_tpu_torch.config.dense_configs import (DenseConfig,
+                                                            apply_overrides,
                                                             get_gt_config)
 from imagecaptioning_tpu_torch.data.proposals import ImageProcessor
 from imagecaptioning_tpu_torch.data.tokenizer import Vocab
 from imagecaptioning_tpu_torch.models import api
 from imagecaptioning_tpu_torch.models.densecap import GTDenseCaptioner
+from imagecaptioning_tpu_torch.train import dense_driver
 from imagecaptioning_tpu_torch.utils.platform import resolve_device
 from imagecaptioning_tpu_torch.utils.weights import load_gt_checkpoint
 
@@ -49,30 +51,13 @@ def load_vocab(dicts_path: str) -> Vocab:
         return Vocab.from_dicts_json(json.load(f))
 
 
-def apply_overrides(cfg: DenseConfig, pairs) -> DenseConfig:
-    """`KEY=VALUE` strings → config fields, typed like the defaults."""
-    for key, value in (kv.split("=", 1) for kv in pairs):
-        cur = getattr(cfg, key)
-        if isinstance(cur, bool):
-            value = value.lower() in ("1", "true", "yes", "on")
-        elif isinstance(cur, (int, float)):
-            value = type(cur)(value)
-        cfg = cfg.replace(**{key: value})
-    return cfg
-
-
 def build_gt_model(cfg: DenseConfig, vocab_size: int, seq_length: int,
                    device: torch.device) -> GTDenseCaptioner:
-    """The serving model for `cfg`, built on `device`, in eval mode."""
-    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    with torch.device(device):
-        model = GTDenseCaptioner(
-            vocab_size=vocab_size, seq_length=seq_length,
-            use_lstm=cfg.use_lstm, embedding_size=cfg.input_encoding_size,
-            rnn_size=cfg.rnn_size, num_lstm_layers=cfg.num_layers,
-            dropout=cfg.drop_value if cfg.use_dropout else 0.0,
-            vgg_stages=cfg.vgg_stages, compute_dtype=dtype)
-    return model.eval()
+    """The serving model for `cfg`, built on `device`, in eval mode, its
+    weights stored in the compute dtype."""
+    return dense_driver.build_gt_model(
+        cfg.replace(param_dtype=cfg.compute_dtype), vocab_size, seq_length,
+        device).eval()
 
 
 def caption_dense(args) -> dict:

@@ -36,17 +36,20 @@ class LanguageHead(nn.Module):
 
     def _warm_state(self, image_vectors: torch.Tensor) -> LSTMState:
         encoded = F.relu(self.image_encoder["encode"](image_vectors))
-        _, state = self.lstm(encoded)
+        _, state = self.lstm(encoded, train=False)
         return state
 
     def forward(self, image_vectors: torch.Tensor,
                 tokens_with_start: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                train: Optional[bool] = None) -> torch.Tensor:
         """Teacher-forced logits (B, T+1, V+3) from image vectors (B, P, D)
-        and [START; gt] tokens (B, T+1)."""
+        and [START; gt] tokens (B, T+1). The LSTM's inter-layer dropout acts
+        when `train` (default: the module's mode), as flax's
+        `deterministic=not train`; the warm-up pass never drops."""
         state = self._warm_state(image_vectors)
         out, _ = self.lstm(self.lookup_table(tokens_with_start), state,
-                           generator=generator)
+                           generator=generator, train=train)
         return self.rnn["linear"](out)
 
     def init_state(self, image_vectors: torch.Tensor) -> LSTMState:
@@ -54,5 +57,5 @@ class LanguageHead(nn.Module):
 
     def step(self, tokens: torch.Tensor, state: LSTMState):
         """One decode step: (B, 1) tokens + state → ((B, V+3), state)."""
-        out, state = self.lstm(self.lookup_table(tokens), state)
+        out, state = self.lstm(self.lookup_table(tokens), state, train=False)
         return self.rnn["linear"](out)[:, 0], state

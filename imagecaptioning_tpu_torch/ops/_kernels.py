@@ -3,8 +3,9 @@
 Each kernel source `csrc/<name>.cu` exposes a plain C entry point. At
 first use it is compiled by `nvcc` for Hopper (`sm_90a`) into
 `build/kernels/` at the repository root and loaded with `ctypes`; the
-library's file name carries a hash of the source and flags, so an edited
-source is rebuilt and a stale library is never loaded. Nothing is built
+library's file name carries a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source is rebuilt and a stale
+library is never loaded. Nothing is built
 or imported when this module is imported: the CPU tests import it on
 machines without `nvcc`.
 """
@@ -17,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -44,12 +46,15 @@ def build(name: str, src: Path | None = None) -> Path:
     `<library>.log`."""
     src = src or CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
+                           str(tmp), str(src)],
                           capture_output=True, text=True)
     Path(f"{lib}.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
@@ -74,4 +79,32 @@ def bind_roi_align(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.roi_align_fwd.argtypes = [*shape, p]
     lib.roi_align_chw_fwd.argtypes = [*shape, i, p]
     lib.roi_align_fwd.restype = lib.roi_align_chw_fwd.restype = ctypes.c_int
+    return lib
+
+
+def build_all(names) -> dict:
+    """Build several sources at once, one nvcc each → {name: library path}."""
+    with ThreadPoolExecutor(len(names)) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
+
+
+@functools.cache
+def roi_align_bwd_lib() -> ctypes.CDLL:
+    """The ROI-pooling backward library, built on first call."""
+    return bind_roi_align_bwd(ctypes.CDLL(str(build("roi_align_bwd"))))
+
+
+def bind_roi_align_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from `roi_align_bwd.cu`:
+    `roi_align_bwd_features` and `roi_align_bwd_boxes`."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    shape = [i, i, i, i, i, i, i, f, f]     # n, r, hf, wf, c, oh, ow, ih, iw
+    # grad, boxes, d_features, shape, grad_bf16, grad_chw, out_bf16, stream
+    lib.roi_align_bwd_features.argtypes = [p, p, p, *shape, i, i, i, p]
+    # features, boxes, grad, d_boxes, shape, feat_bf16, grad_bf16,
+    # grad_chw, stream
+    lib.roi_align_bwd_boxes.argtypes = [p, p, p, p, *shape, i, i, i, p]
+    lib.roi_align_bwd_features.restype = ctypes.c_int
+    lib.roi_align_bwd_boxes.restype = ctypes.c_int
     return lib

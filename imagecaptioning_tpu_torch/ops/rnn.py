@@ -37,8 +37,11 @@ class LSTM(nn.Module):
 
     Matches torch `nn.LSTM(batch_first=True)`; returns (outputs (B, T, H),
     (h, c) each (num_layers, B, H)). Dropout acts between layers (not
-    after the last), only when `num_layers > 1` and only in training mode,
-    with masks drawn from the `generator` passed to `forward`.
+    after the last), only when `num_layers > 1` and only in training
+    (`train`, which defaults to the module's mode), with masks drawn from
+    the `generator` passed to `forward`. The recurrence rebinds its
+    per-layer state and writes no tensor in place, so autograd runs
+    through it.
     """
 
     def __init__(self, input_size: int, hidden_size: int,
@@ -64,12 +67,14 @@ class LSTM(nn.Module):
                      ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
 
     def forward(self, xs: torch.Tensor, state: Optional[LSTMState] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                train: Optional[bool] = None):
         b, t, _ = xs.shape
         if state is None:
             zeros = xs.new_zeros((self.num_layers, b, self.hidden_size))
             state = (zeros, zeros)
-        use_drop = self.training and self.dropout > 0 and self.num_layers > 1
+        train = self.training if train is None else train
+        use_drop = train and self.dropout > 0 and self.num_layers > 1
         keep = 1.0 - self.dropout
         params = [self.layer_params(layer) for layer in range(self.num_layers)]
 

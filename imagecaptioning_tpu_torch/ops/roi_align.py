@@ -22,8 +22,17 @@ padding_mode='zeros')` with θ from the reference's BoxToAffine
   package's einsum form (`roi_align.py:40-87, 171-177`). The CPU tests
   and the on-card comparison use them; the card's main path does not.
 
-Forward only: the backward (features AND boxes, as `_bbwd` keeps) is the
-training slice's `torch.autograd.Function`.
+All three entries are differentiable with respect to the features AND the
+boxes, as the JAX kernels' custom_vjp `_bbwd` / `_bwd` (`roi_align.py:
+155-165, 234-242`) are: a `torch.autograd.Function` saves both, and its
+backward returns d_features in the features' dtype and d_boxes (fp32),
+each only where autograd asks for it. On a CUDA tensor each is one launch
+of a hand-written kernel (`csrc/roi_align_bwd.cu`), through
+`roi_align_bwd_features` / `roi_align_bwd_boxes`, each with its own
+`launches` count; on a CPU tensor they run the plain backward,
+`roi_align_backward_reference` (`torch.autograd.grad` through the plain
+forward, as `_bbwd` takes `jax.vjp` of the einsum form). Under
+`torch.no_grad()` nothing is saved and the forward is its one launch.
 """
 
 from __future__ import annotations
@@ -146,12 +155,74 @@ def _launch(entry: str, features: torch.Tensor, boxes: torch.Tensor,
 
 
 def _nhwc(features: torch.Tensor, boxes: torch.Tensor,
-          image_hw: Tuple[float, float],
-          out_hw: Tuple[int, int]) -> torch.Tensor:
+          image_hw: Tuple[float, float], out_hw: Tuple[int, int],
+          counter) -> torch.Tensor:
+    """The NHWC pooling: the plain version on the CPU, else one launch
+    counted on `counter` (the public wrapper that was called)."""
+    if features.device.type == "cpu":
+        return roi_align_batch_reference(features, boxes, image_hw, out_hw)
     n, r = boxes.shape[:2]
     out = torch.empty((n, r, *out_hw, features.shape[-1]),
                       dtype=torch.float32, device=features.device)
-    return _launch("roi_align_fwd", features, boxes, image_hw, out_hw, out)
+    _launch("roi_align_fwd", features, boxes, image_hw, out_hw, out)
+    counter.launches += 1
+    return out
+
+
+def _chw(features: torch.Tensor, boxes: torch.Tensor,
+         image_hw: Tuple[float, float], out_hw: Tuple[int, int],
+         out_dtype: torch.dtype) -> torch.Tensor:
+    """The fused CHW pooling: the plain version on the CPU, else one
+    launch."""
+    if features.device.type == "cpu":
+        return roi_align_batch_chw_reference(features, boxes, image_hw,
+                                             out_hw, out_dtype)
+    n, r = boxes.shape[:2]
+    out = torch.empty((n, r, features.shape[-1] * out_hw[0] * out_hw[1]),
+                      dtype=out_dtype, device=features.device)
+    _launch("roi_align_chw_fwd", features, boxes, image_hw, out_hw, out,
+            int(out_dtype == torch.bfloat16))
+    roi_align_batch_chw.launches += 1
+    return out
+
+
+def _backward(ctx, grad: torch.Tensor):
+    """(d_features, d_boxes) for what autograd asks, None elsewhere."""
+    features, boxes = ctx.saved_tensors
+    need_features, need_boxes = ctx.needs_input_grad[:2]
+    grad = grad.contiguous()
+    args = (features, boxes, grad, *ctx.geometry)
+    return (roi_align_bwd_features(*args) if need_features else None,
+            roi_align_bwd_boxes(*args) if need_boxes else None)
+
+
+class _PoolNhwc(torch.autograd.Function):
+    """`roi_align_batch` / `roi_align` with `_bbwd`'s backward."""
+
+    @staticmethod
+    def forward(ctx, features, boxes, image_hw, out_hw, counter):
+        ctx.save_for_backward(features, boxes)
+        ctx.geometry = (image_hw, out_hw)
+        return _nhwc(features, boxes, image_hw, out_hw, counter)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (*_backward(ctx, grad), None, None, None)
+
+
+class _PoolChw(torch.autograd.Function):
+    """`roi_align_batch_chw` with `_bbwd`'s backward, taking fc6's
+    gradient in CHW order."""
+
+    @staticmethod
+    def forward(ctx, features, boxes, image_hw, out_hw, out_dtype):
+        ctx.save_for_backward(features, boxes)
+        ctx.geometry = (image_hw, out_hw)
+        return _chw(features, boxes, image_hw, out_hw, out_dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (*_backward(ctx, grad), None, None, None)
 
 
 def roi_align_batch(features: torch.Tensor, boxes: torch.Tensor,
@@ -160,11 +231,8 @@ def roi_align_batch(features: torch.Tensor, boxes: torch.Tensor,
     """features (N, Hf, Wf, C) fp32 or bf16 contiguous, boxes (N, R, 4)
     fp32 xcycwh in image coords → (N, R, oh, ow, C) fp32."""
     _check(features, boxes, out_hw)
-    if features.device.type == "cpu":
-        return roi_align_batch_reference(features, boxes, image_hw, out_hw)
-    out = _nhwc(features, boxes, image_hw, out_hw)
-    roi_align_batch.launches += 1
-    return out
+    return _PoolNhwc.apply(features, boxes, image_hw, out_hw,
+                           roi_align_batch)
 
 
 roi_align_batch.launches = 0
@@ -180,11 +248,7 @@ def roi_align(features: torch.Tensor, boxes: torch.Tensor,
                          f"{tuple(features.shape)} and {tuple(boxes.shape)}")
     features, boxes = features[None], boxes[None]
     _check(features, boxes, out_hw)
-    if features.device.type == "cpu":
-        return roi_align_batch_reference(features, boxes, image_hw, out_hw)[0]
-    out = _nhwc(features, boxes, image_hw, out_hw)[0]
-    roi_align.launches += 1
-    return out
+    return _PoolNhwc.apply(features, boxes, image_hw, out_hw, roi_align)[0]
 
 
 roi_align.launches = 0
@@ -215,16 +279,132 @@ def roi_align_batch_chw(features: torch.Tensor, boxes: torch.Tensor,
     _check(features, boxes, out_hw)
     if out_dtype not in _DTYPES:
         raise TypeError(f"want a float32 or bfloat16 output, got {out_dtype}")
-    if features.device.type == "cpu":
-        return roi_align_batch_chw_reference(features, boxes, image_hw,
-                                             out_hw, out_dtype)
-    n, r = boxes.shape[:2]
-    out = torch.empty((n, r, features.shape[-1] * out_hw[0] * out_hw[1]),
-                      dtype=out_dtype, device=features.device)
-    _launch("roi_align_chw_fwd", features, boxes, image_hw, out_hw, out,
-            int(out_dtype == torch.bfloat16))
-    roi_align_batch_chw.launches += 1
-    return out
+    return _PoolChw.apply(features, boxes, image_hw, out_hw, out_dtype)
 
 
 roi_align_batch_chw.launches = 0
+
+
+# ------------------------------------------------------------ backward
+
+def _grad_nhwc(grad: torch.Tensor, features: torch.Tensor,
+               boxes: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """The upstream gradient as (N, R, oh, ow, C): NHWC as it is, or the
+    CHW-flattened (N, R, C·oh·ow) unflattened; raises on any other
+    shape, type or device."""
+    n, r = boxes.shape[:2]
+    c = features.shape[-1]
+    oh, ow = out_hw
+    if grad.dtype not in _DTYPES:
+        raise TypeError(f"want a float32 or bfloat16 gradient, got "
+                        f"{grad.dtype}")
+    if grad.device != features.device:
+        raise ValueError(f"gradient on {grad.device}, features on "
+                         f"{features.device}")
+    if not grad.is_contiguous():
+        raise ValueError("the gradient must be contiguous")
+    if tuple(grad.shape) == (n, r, c * oh * ow):
+        return grad.reshape(n, r, c, oh, ow).permute(0, 1, 3, 4, 2)
+    if tuple(grad.shape) == (n, r, oh, ow, c):
+        return grad
+    raise ValueError(f"want a gradient ({n}, {r}, {c * oh * ow}) CHW or "
+                     f"({n}, {r}, {oh}, {ow}, {c}) NHWC, got "
+                     f"{tuple(grad.shape)}")
+
+
+def roi_align_backward_reference(features: torch.Tensor, boxes: torch.Tensor,
+                                 grad: torch.Tensor,
+                                 image_hw: Tuple[float, float],
+                                 out_hw: Tuple[int, int] = (7, 7),
+                                 need_features: bool = True,
+                                 need_boxes: bool = True):
+    """Plain backward: `torch.autograd.grad` of the plain forward at the
+    widened gradient, as `_bbwd` takes `jax.vjp` of the einsum form →
+    (d_features in the features' dtype, d_boxes fp32), None for what is
+    not needed. `grad` is NHWC (N, R, oh, ow, C) or CHW (N, R, C·oh·ow),
+    fp32 or bf16."""
+    g = _grad_nhwc(grad, features, boxes, out_hw).float()
+    with torch.enable_grad():
+        f = features.detach().float().requires_grad_(need_features)
+        b = boxes.detach().requires_grad_(need_boxes)
+        wanted = [t for t in (f, b) if t.requires_grad]
+        if not wanted:
+            return None, None
+        out = roi_align_batch_reference(f, b, image_hw, out_hw)
+        grads = iter(torch.autograd.grad(out, wanted, g))
+    d_features = next(grads).to(features.dtype) if need_features else None
+    d_boxes = next(grads) if need_boxes else None
+    return d_features, d_boxes
+
+
+def _launch_bwd(entry: str, features: torch.Tensor, boxes: torch.Tensor,
+                grad: torch.Tensor, image_hw: Tuple[float, float],
+                out_hw: Tuple[int, int], out: torch.Tensor) -> torch.Tensor:
+    n, hf, wf, c = features.shape
+    oh, ow = out_hw
+    shape = (n, boxes.shape[1], hf, wf, c, oh, ow, float(image_hw[0]),
+             float(image_hw[1]))
+    grad_bf16 = int(grad.dtype == torch.bfloat16)
+    grad_chw = int(grad.dim() == 3)
+    feat_bf16 = int(features.dtype == torch.bfloat16)
+    lib = _kernels.roi_align_bwd_lib()
+    with torch.cuda.device(features.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if entry == "roi_align_bwd_features":
+            err = lib.roi_align_bwd_features(
+                grad.data_ptr(), boxes.data_ptr(), out.data_ptr(), *shape,
+                grad_bf16, grad_chw, feat_bf16, stream)
+        else:
+            err = lib.roi_align_bwd_boxes(
+                features.data_ptr(), boxes.data_ptr(), grad.data_ptr(),
+                out.data_ptr(), *shape, feat_bf16, grad_bf16, grad_chw,
+                stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    return out
+
+
+def roi_align_bwd_features(features: torch.Tensor, boxes: torch.Tensor,
+                           grad: torch.Tensor, image_hw: Tuple[float, float],
+                           out_hw: Tuple[int, int] = (7, 7)) -> torch.Tensor:
+    """d_features (N, Hf, Wf, C) in the features' dtype (summed in fp32,
+    rounded once) from the pooling's upstream gradient `grad`, NHWC
+    (N, R, oh, ow, C) or CHW (N, R, C·oh·ow), fp32 or bf16. On a CUDA
+    tensor one launch of kernel A (`csrc/roi_align_bwd.cu`); on a CPU
+    tensor the plain backward."""
+    _check(features, boxes, out_hw)
+    _grad_nhwc(grad, features, boxes, out_hw)
+    if features.device.type == "cpu":
+        return roi_align_backward_reference(features, boxes, grad, image_hw,
+                                            out_hw, need_boxes=False)[0]
+    out = _launch_bwd("roi_align_bwd_features", features, boxes, grad,
+                      image_hw, out_hw, torch.empty_like(features))
+    roi_align_bwd_features.launches += 1
+    return out
+
+
+roi_align_bwd_features.launches = 0
+
+
+def roi_align_bwd_boxes(features: torch.Tensor, boxes: torch.Tensor,
+                        grad: torch.Tensor, image_hw: Tuple[float, float],
+                        out_hw: Tuple[int, int] = (7, 7)) -> torch.Tensor:
+    """d_boxes (N, R, 4) fp32 from the pooling's upstream gradient, as
+    `roi_align_bwd_features` takes it. On a CUDA tensor one launch of
+    kernel B (`csrc/roi_align_bwd.cu`); on a CPU tensor the plain
+    backward."""
+    _check(features, boxes, out_hw)
+    _grad_nhwc(grad, features, boxes, out_hw)
+    if features.device.type == "cpu":
+        return roi_align_backward_reference(features, boxes, grad, image_hw,
+                                            out_hw, need_features=False)[1]
+    if sum(out_hw) > 64:
+        raise ValueError(f"output {out_hw}: the box kernel takes at most 64 "
+                         f"output rows and columns together")
+    out = _launch_bwd("roi_align_bwd_boxes", features, boxes, grad, image_hw,
+                      out_hw, torch.empty_like(boxes))
+    roi_align_bwd_boxes.launches += 1
+    return out
+
+
+roi_align_bwd_boxes.launches = 0

@@ -1,4 +1,5 @@
-"""Token-id conventions (port of `imagecaptioning_tpu/ops/tokens.py:26-50`).
+"""Token-id conventions and target construction (port of
+`imagecaptioning_tpu/ops/tokens.py:26-72`).
 
 The AlexCap family and the GT LSTM head use NULL=0, START=V+1, END=V+2
 (LanguageModule.py:39-41). The DenseCap transformers' sos=V-2/eos=V-1
@@ -32,3 +33,26 @@ def decoder_input(gt: torch.Tensor, start_token: int) -> torch.Tensor:
     start_col = torch.full((gt.shape[0], 1), start_token, dtype=gt.dtype,
                            device=gt.device)
     return torch.cat([start_col, gt], dim=1)
+
+
+def decoder_target(gt: torch.Tensor, end_token: int,
+                   scan_from: int = 1) -> torch.Tensor:
+    """gt padded to (N, T+1) with END written at the first NULL position
+    at or after `scan_from` — reference get_target(make_target=True).
+
+    Because the pad column is always NULL, a full-length caption gets its
+    END at position T, and an empty caption (scan_from=0) at position 0.
+    """
+    n, t = gt.shape
+    padded = torch.cat([gt, gt.new_zeros((n, 1))], dim=1)
+    is_null = padded == 0
+    if scan_from > 0:
+        is_null &= torch.arange(t + 1, device=gt.device) >= scan_from
+    # argmax returns the first maximum, as jnp.argmax does
+    first_null = is_null.to(torch.int32).argmax(dim=1, keepdim=True)
+    return padded.scatter(1, first_null, end_token)
+
+
+def sequence_mask(targets: torch.Tensor, null_token: int = 0) -> torch.Tensor:
+    """Loss mask: positions where the target is not NULL."""
+    return targets != null_token

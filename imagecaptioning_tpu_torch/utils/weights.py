@@ -10,14 +10,17 @@
   the JAX package's `export_reference_gt_model` + `save_state_dict`
   write, or a reference `.pth`), minus the reference's duplicate `net.*`
   registrations of the same tensors.
-- `seeded_init_`: random weights from a seed, for serving without a
-  trained checkpoint.
+- `gt_train_state_from_jax`: a JAX GT training state (params and the
+  optax Adam state of each group) → the port's model and optimizer state
+  dicts, so that a JAX run resumes in the port.
+- `seeded_init_`: random weights from a seed, for serving or training
+  without a trained checkpoint.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -121,6 +124,39 @@ def gt_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
                                         channels=last.shape[0]))
     sd.update(language_head_state_dict(params["llm"]))
     return sd
+
+
+def _fill(params, tree):
+    """`tree` shaped like `params`, with zeros where it holds no array
+    (optax's `MaskedNode` marks another group's leaf)."""
+    if isinstance(params, Mapping):
+        return {k: _fill(v, tree.get(k) if isinstance(tree, Mapping) else None)
+                for k, v in params.items()}
+    return tree if hasattr(tree, "shape") else np.zeros_like(params)
+
+
+def gt_train_state_from_jax(params: Mapping, adam: Mapping,
+                            optimizer) -> Tuple[Dict, Dict]:
+    """A JAX GT training state → (the port's model state_dict, the state
+    dict for `optimizer`, a `DenseAdam` that `make_dense_optimizer` built
+    over the port's model).
+
+    `params` is the JAX params tree; `adam` maps each optax group name of
+    `make_dense_optimizer` ("encoder", "head") to its `scale_by_adam`
+    state (count, mu, nu), the moments as trees shaped like `params`
+    whose leaves outside the group are anything but arrays. The moments
+    go through the same layout conversion as the weights."""
+    opt_sd = optimizer.state_dict()
+    state = {}
+    for group in opt_sd["param_groups"]:
+        count, mu, nu = adam[group["group"]]
+        mu_sd = gt_state_dict_from_jax(_fill(params, mu))
+        nu_sd = gt_state_dict_from_jax(_fill(params, nu))
+        for idx, name in zip(group["params"], group["names"]):
+            state[idx] = {"step": torch.tensor(float(count)),
+                          "exp_avg": mu_sd[name], "exp_avg_sq": nu_sd[name]}
+    opt_sd["state"] = state
+    return gt_state_dict_from_jax(params), opt_sd
 
 
 def load_gt_checkpoint(path: str) -> Dict[str, torch.Tensor]:

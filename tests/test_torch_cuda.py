@@ -13,6 +13,11 @@ the plain version's fp32 codes rounded to bf16 (the two fp32 sums may
 differ in the last bit, which can move the rounding by one step). 1e-4
 between the tiny model on the card and on the CPU
 (fp32 with TF32 off; cuDNN and cuBLAS sum in another order).
+The ROI backward kernels against the plain backward (autograd through the
+plain forward): d_features within 1e-5 max-abs in fp32 and within one
+bf16 ulp for a bf16 map (both round an fp32 sum once, in another order);
+d_boxes within 1e-4 relative to the largest component; each kernel
+bitwise the same on a second launch.
 """
 
 import numpy as np
@@ -174,3 +179,122 @@ def test_infer_cli_on_card_matches_cpu(card, tmp_path):
     on_card = infer.main(args)                 # default device: the card
     assert roi.roi_align_batch_chw.launches == before + 2
     assert on_card == infer.main(args + ["--device", "cpu"])
+
+
+BWD_SHAPES = [
+    (3, 9, 8, 8, 4, 128.0, 128.0, (7, 7)),
+    (2, 40, 11, 17, 37, 176.0, 272.0, (5, 9)),
+    # more boxes than one group of taps, more columns than one tile
+    (2, 200, 40, 37, 33, 640.0, 592.0, (7, 7)),
+    (1, 32, 22, 22, 512, 720.0, 720.0, (7, 7)),      # N=1, the 720² canvas
+    (4, 32, 22, 22, 512, 720.0, 720.0, (7, 7)),      # the training shape
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["chw", "nhwc"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,r,hf,wf,c,ih,iw,out_hw", BWD_SHAPES)
+def test_backward_kernels_match_plain(card, n, r, hf, wf, c, ih, iw, out_hw,
+                                      dtype, layout):
+    rng = np.random.RandomState(n + r + c + 1)
+    feats = torch.from_numpy(rng.randn(n, hf, wf, c).astype(np.float32))
+    feats = feats.to(card, dtype)
+    boxes = _boxes(rng, n, r, ih, iw).to(card)
+    g = torch.from_numpy(rng.randn(n, r, *out_hw, c).astype(np.float32))
+    if layout == "chw":       # fc6's gradient, in the map's dtype
+        grad = g.permute(0, 1, 4, 2, 3).reshape(n, r, -1).to(card, dtype)
+    else:
+        grad = g.to(card)
+    hw = (ih, iw)
+    counts = (port_roi.roi_align_bwd_features.launches,
+              port_roi.roi_align_bwd_boxes.launches)
+    d_f = port_roi.roi_align_bwd_features(feats, boxes, grad, hw, out_hw)
+    d_b = port_roi.roi_align_bwd_boxes(feats, boxes, grad, hw, out_hw)
+    torch.cuda.synchronize()
+    assert (port_roi.roi_align_bwd_features.launches,
+            port_roi.roi_align_bwd_boxes.launches) == (counts[0] + 1,
+                                                       counts[1] + 1)
+    want_f, want_b = port_roi.roi_align_backward_reference(feats, boxes, grad,
+                                                           hw, out_hw)
+    assert d_f.dtype == dtype and d_f.shape == feats.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(d_f, want_f, rtol=0, atol=1e-5)
+    else:
+        assert bool(_within_one_bf16_ulp(d_f, want_f).all())
+    torch.testing.assert_close(d_b, want_b, rtol=1e-4,
+                               atol=1e-4 * float(want_b.abs().max()))
+    assert torch.equal(
+        port_roi.roi_align_bwd_features(feats, boxes, grad, hw, out_hw), d_f)
+    assert torch.equal(
+        port_roi.roi_align_bwd_boxes(feats, boxes, grad, hw, out_hw), d_b)
+
+
+@pytest.mark.cuda
+def test_autograd_through_the_pooling_launches_the_kernels(card):
+    rng = np.random.RandomState(3)
+    feats = torch.from_numpy(rng.randn(2, 16, 16, 64).astype(np.float32))
+    feats = feats.to(card, torch.bfloat16).requires_grad_()
+    boxes = _boxes(rng, 2, 8, 512.0, 512.0).to(card)
+    counts = (port_roi.roi_align_bwd_features.launches,
+              port_roi.roi_align_bwd_boxes.launches)
+    codes = port_roi.roi_align_batch_chw(feats, boxes, (512.0, 512.0),
+                                         out_dtype=torch.bfloat16)
+    (d_f,) = torch.autograd.grad(codes.float().square().sum(), feats)
+    torch.cuda.synchronize()
+    # the boxes are data: only kernel A runs
+    assert (port_roi.roi_align_bwd_features.launches,
+            port_roi.roi_align_bwd_boxes.launches) == (counts[0] + 1,
+                                                       counts[1])
+    want, _ = port_roi.roi_align_backward_reference(
+        feats.detach(), boxes, 2 * codes.detach(), (512.0, 512.0),
+        need_boxes=False)
+    assert bool(_within_one_bf16_ulp(d_f, want).all())
+    with torch.no_grad():
+        before = port_roi.roi_align_batch_chw.launches
+        port_roi.roi_align_batch_chw(feats, boxes, (512.0, 512.0))
+        assert port_roi.roi_align_batch_chw.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_on_card_matches_cpu(card):
+    """One fp32 train step (Adam, every group moving) from the same weights
+    on the card and on the CPU, dropout off on both (the two devices'
+    generators draw different masks): the loss within 1e-4 relative; each
+    weight within 2·lr (a first Adam update moves a weight by at most lr,
+    and a gradient whose sign is inside rounding noise may flip it), at
+    most 1e-5 of them more than 1e-7 apart."""
+    from imagecaptioning_tpu_torch.config.dense_configs import DenseConfig
+    from imagecaptioning_tpu_torch.train import dense_driver as dd
+
+    cfg = DenseConfig(use_lstm=True, compute_dtype="float32", vgg_stages=3,
+                      input_encoding_size=16, rnn_size=16)
+    twins = [dd.build_gt_model(cfg, 24, 5, d)
+             for d in (torch.device("cpu"), card)]
+    twins[1].load_state_dict(seeded_init_(twins[0], 0).state_dict())
+    rng = np.random.RandomState(4)
+    images = torch.from_numpy(rng.randint(0, 256, (2, 48, 48, 3),
+                                          dtype=np.uint8))
+    boxes = _boxes(rng, 2, 4, 48.0, 48.0)
+    labels = torch.from_numpy(rng.randint(1, 25, (2, 4, 5)))
+    mask = torch.ones(2, 4)
+    losses = []
+    before = port_roi.roi_align_bwd_features.launches
+    for model in twins:
+        d = next(model.parameters()).device
+        model.classifier[2].p = 0.0
+        opt = dd.make_dense_optimizer(cfg, model, 0)
+        step = dd.make_gt_train_step(model, opt, False,
+                                     torch.Generator(d).manual_seed(0))
+        losses.append(float(step(images.to(d), boxes.to(d), labels.to(d),
+                                 mask.to(d), 1.0)))
+    assert port_roi.roi_align_bwd_features.launches == before + 1
+    assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])
+    cpu = dict(twins[0].named_parameters())
+    off = total = 0
+    for name, p in twins[1].named_parameters():
+        d = (p.detach().cpu() - cpu[name].detach()).abs()
+        assert float(d.max()) <= 2 * cfg.learning_rate + 1e-7, name
+        off += int((d > 1e-7).sum())
+        total += d.numel()
+    assert off <= 1e-5 * total
