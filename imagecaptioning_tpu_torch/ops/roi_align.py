@@ -337,13 +337,32 @@ def roi_align_backward_reference(features: torch.Tensor, boxes: torch.Tensor,
     return d_features, d_boxes
 
 
+# The backward kernels stage a box's gradient slab (32 or 64 channels ×
+# oh·ow) in shared memory and keep one bit per output row and column.
+_BWD_MAX_SIDE = 32
+_BWD_MAX_CELLS = 256
+_BOX_CHUNK = 64       # kernel B's channels per block
+
+
+def _check_bwd(features: torch.Tensor, boxes: torch.Tensor,
+               grad: torch.Tensor, out_hw: Tuple[int, int]) -> None:
+    """The backward wrappers' checks, the same on every device."""
+    _check(features, boxes, out_hw)
+    _grad_nhwc(grad, features, boxes, out_hw)
+    oh, ow = out_hw
+    if max(oh, ow) > _BWD_MAX_SIDE or oh * ow > _BWD_MAX_CELLS:
+        raise ValueError(f"output {out_hw}: the backward kernels take at "
+                         f"most {_BWD_MAX_SIDE} rows and columns and "
+                         f"{_BWD_MAX_CELLS} cells")
+
+
 def _launch_bwd(entry: str, features: torch.Tensor, boxes: torch.Tensor,
                 grad: torch.Tensor, image_hw: Tuple[float, float],
                 out_hw: Tuple[int, int], out: torch.Tensor) -> torch.Tensor:
     n, hf, wf, c = features.shape
+    r = boxes.shape[1]
     oh, ow = out_hw
-    shape = (n, boxes.shape[1], hf, wf, c, oh, ow, float(image_hw[0]),
-             float(image_hw[1]))
+    shape = (n, r, hf, wf, c, oh, ow, float(image_hw[0]), float(image_hw[1]))
     grad_bf16 = int(grad.dtype == torch.bfloat16)
     grad_chw = int(grad.dim() == 3)
     feat_bf16 = int(features.dtype == torch.bfloat16)
@@ -355,10 +374,14 @@ def _launch_bwd(entry: str, features: torch.Tensor, boxes: torch.Tensor,
                 grad.data_ptr(), boxes.data_ptr(), out.data_ptr(), *shape,
                 grad_bf16, grad_chw, feat_bf16, stream)
         else:
+            # the first pass's partial sums per (box, channel chunk)
+            chunks = -(-c // _BOX_CHUNK)
+            scratch = torch.empty(n * r * chunks * (oh + ow),
+                                  dtype=torch.float32, device=features.device)
             err = lib.roi_align_bwd_boxes(
                 features.data_ptr(), boxes.data_ptr(), grad.data_ptr(),
-                out.data_ptr(), *shape, feat_bf16, grad_bf16, grad_chw,
-                stream)
+                out.data_ptr(), scratch.data_ptr(), *shape, feat_bf16,
+                grad_bf16, grad_chw, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     return out
@@ -371,9 +394,9 @@ def roi_align_bwd_features(features: torch.Tensor, boxes: torch.Tensor,
     rounded once) from the pooling's upstream gradient `grad`, NHWC
     (N, R, oh, ow, C) or CHW (N, R, C·oh·ow), fp32 or bf16. On a CUDA
     tensor one launch of kernel A (`csrc/roi_align_bwd.cu`); on a CPU
-    tensor the plain backward."""
-    _check(features, boxes, out_hw)
-    _grad_nhwc(grad, features, boxes, out_hw)
+    tensor the plain backward. On every device `out_hw` is at most 32 a
+    side and 256 cells (the kernels' shared-memory staging)."""
+    _check_bwd(features, boxes, grad, out_hw)
     if features.device.type == "cpu":
         return roi_align_backward_reference(features, boxes, grad, image_hw,
                                             out_hw, need_boxes=False)[0]
@@ -390,17 +413,15 @@ def roi_align_bwd_boxes(features: torch.Tensor, boxes: torch.Tensor,
                         grad: torch.Tensor, image_hw: Tuple[float, float],
                         out_hw: Tuple[int, int] = (7, 7)) -> torch.Tensor:
     """d_boxes (N, R, 4) fp32 from the pooling's upstream gradient, as
-    `roi_align_bwd_features` takes it. On a CUDA tensor one launch of
-    kernel B (`csrc/roi_align_bwd.cu`); on a CPU tensor the plain
-    backward."""
-    _check(features, boxes, out_hw)
-    _grad_nhwc(grad, features, boxes, out_hw)
+    `roi_align_bwd_features` takes it, with the same limits. On a CUDA
+    tensor kernel B (`csrc/roi_align_bwd.cu`), counted as one launch: its
+    C entry runs it as two, partial sums per (box, 64-channel chunk) into a
+    scratch buffer allocated here, then their sum in chunk order, so the
+    bits repeat without atomics. On a CPU tensor the plain backward."""
+    _check_bwd(features, boxes, grad, out_hw)
     if features.device.type == "cpu":
         return roi_align_backward_reference(features, boxes, grad, image_hw,
                                             out_hw, need_features=False)[1]
-    if sum(out_hw) > 64:
-        raise ValueError(f"output {out_hw}: the box kernel takes at most 64 "
-                         f"output rows and columns together")
     out = _launch_bwd("roi_align_bwd_boxes", features, boxes, grad, image_hw,
                       out_hw, torch.empty_like(boxes))
     roi_align_bwd_boxes.launches += 1

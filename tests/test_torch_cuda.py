@@ -17,7 +17,7 @@ The ROI backward kernels against the plain backward (autograd through the
 plain forward): d_features within 1e-5 max-abs in fp32 and within one
 bf16 ulp for a bf16 map (both round an fp32 sum once, in another order);
 d_boxes within 1e-4 relative to the largest component; each kernel
-bitwise the same on a second launch.
+bitwise the same on a second launch (neither uses float atomics).
 """
 
 import numpy as np
@@ -188,6 +188,20 @@ BWD_SHAPES = [
     (2, 200, 40, 37, 33, 640.0, 592.0, (7, 7)),
     (1, 32, 22, 22, 512, 720.0, 720.0, (7, 7)),      # N=1, the 720² canvas
     (4, 32, 22, 22, 512, 720.0, 720.0, (7, 7)),      # the training shape
+    # the redesigned kernels' edges. 9 rows: three bands of 4 feature rows
+    # (the last of one), boxes straddling them
+    (2, 12, 9, 13, 64, 144.0, 208.0, (7, 7)),
+    # 70 columns: three column passes; 70 boxes: three groups of taps, and
+    # more kept boxes than one batch of staging buffers; C = 40: a partial
+    # channel chunk of 16-byte rows
+    (1, 70, 13, 70, 40, 208.0, 1120.0, (7, 7)),
+    # a 3×5 map: each box's 7 output rows land on at most 3 feature rows;
+    # C = 70: rows that are no multiple of 16 bytes (copied element-wise)
+    (2, 16, 3, 5, 70, 96.0, 160.0, (7, 7)),
+    # 256 cells: the slabs take more than 48 KB of shared memory
+    (2, 10, 12, 12, 24, 192.0, 192.0, (16, 16)),
+    # 32 output rows: the row mask's last bit
+    (1, 8, 20, 30, 16, 320.0, 480.0, (32, 8)),
 ]
 
 

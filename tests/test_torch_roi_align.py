@@ -198,9 +198,24 @@ def _grad_case(n, r, hf, wf, c, image_hw, out_hw):
     return feats, boxes, g
 
 
-@pytest.mark.parametrize("layout", ["chw", "nhwc"])
-@pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("n,r,hf,wf,c,image_hw,out_hw", SHAPES)
+def _vjp_cases():
+    """Every shape of SHAPES with an fp32 and a bf16 map and either
+    gradient layout; then the training geometry (4 images of 720² → a
+    22×22 map, 32 boxes each, 7×7, edge boxes) at a narrow C with a bf16
+    map and a bf16 CHW gradient, as training calls it. Its d_features
+    reach ~10, where the two frameworks' fp32 summation orders part by
+    ~1e-5, so only the bf16 case's bound holds there."""
+    cases = [pytest.param(*shape, bf16, layout, id="-".join(
+        [*map(str, shape[:5]), f"image_hw{i}", f"out_hw{i}", str(bf16),
+         layout]))
+        for layout in ("chw", "nhwc") for bf16 in (False, True)
+        for i, shape in enumerate(SHAPES)]
+    return cases + [pytest.param(4, 32, 22, 22, 8, (720.0, 720.0), (7, 7),
+                                 True, "chw", id="training-bf16-chw")]
+
+
+@pytest.mark.parametrize("n,r,hf,wf,c,image_hw,out_hw,bf16,layout",
+                         _vjp_cases())
 def test_backward_matches_jax_vjp(n, r, hf, wf, c, image_hw, out_hw, bf16,
                                   layout):
     feats, boxes, g = _grad_case(n, r, hf, wf, c, image_hw, out_hw)
@@ -290,15 +305,26 @@ def test_backward_computes_only_what_autograd_asks():
             f, b, image_hw, out_hw).requires_grad
 
 
-@pytest.mark.parametrize("grad", [
-    torch.zeros(3, 9, 7, 7, 5),                        # wrong channel count
-    torch.zeros(3, 9, 195),                            # wrong CHW width
-    torch.zeros(3, 9, 196, dtype=torch.float64),       # wrong type
-    torch.zeros(3, 9, 4, 7, 7).permute(0, 1, 3, 4, 2),  # not contiguous
+@pytest.mark.parametrize("grad,out_hw", [
+    # wrong channel count
+    pytest.param(torch.zeros(3, 9, 7, 7, 5), (7, 7), id="grad0"),
+    # wrong CHW width
+    pytest.param(torch.zeros(3, 9, 195), (7, 7), id="grad1"),
+    # wrong type
+    pytest.param(torch.zeros(3, 9, 196, dtype=torch.float64), (7, 7),
+                 id="grad2"),
+    # not contiguous
+    pytest.param(torch.zeros(3, 9, 4, 7, 7).permute(0, 1, 3, 4, 2), (7, 7),
+                 id="grad3"),
+    # a well-formed gradient of an output the kernels cannot stage: more
+    # than 32 rows, more than 256 cells
+    pytest.param(torch.zeros(3, 9, 33, 2, 4), (33, 2), id="side_over_32"),
+    pytest.param(torch.zeros(3, 9, 4 * 17 * 16), (17, 16),
+                 id="cells_over_256"),
 ])
-def test_backward_wrappers_reject_bad_gradients(grad):
+def test_backward_wrappers_reject_bad_gradients(grad, out_hw):
     feats, boxes = torch.zeros(3, 8, 8, 4), torch.ones(3, 9, 4)
     err = TypeError if grad.dtype == torch.float64 else ValueError
     for fn in (port_roi.roi_align_bwd_features, port_roi.roi_align_bwd_boxes):
         with pytest.raises(err):
-            fn(feats, boxes, grad, (128.0, 128.0))
+            fn(feats, boxes, grad, (128.0, 128.0), out_hw)
