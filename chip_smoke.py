@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Card smoke run of the PyTorch port (imagecaptioning_tpu_torch): GT-box
-dense-caption serving and training on one CUDA card.
+dense-caption serving and training on one CUDA card, with the LSTM head
+(phases 4–9) and the transformer head (phases 10–11).
 
     python3 chip_smoke.py
 
@@ -68,13 +69,31 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    within 1e-4 relative and every parameter after the update within
    2·lr of the CPU's (a first Adam update moves a weight by at most lr;
    the sign of a gradient inside rounding noise may differ), with at
-   most 1e-5 of all weights more than 1e-7 apart.
+   most 1e-5 of all weights more than 1e-7 apart;
+10. the transformer head (the reference's default GT
+   model: fc 4096→256,
+   3 encoder and 3 decoder layers, 4 heads, FFN 1024, fp32 over the bf16
+   trunk) from seed 0: serving as in 4 and 5 (regions/s; the profiler's
+   card busy time, idle share of the profiled and of the event-timed
+   call, kernels launched per call and top
+   kernels; the fused ROI entry once per forward; run after phase 6, so
+   its serving is timed after the profiler's first use), then its fp32
+   logits on the card against the CPU's as in 6, within 1e-4, with
+   greedy and beam-3 tokens identical;
+11. (run after 9) the transformer head's training as in 8 (kernel A once
+   per step) and its fp32 train step on the card against the CPU as in 9.
+Every line of phases 4–11 carries the card's name and power limit. The
+kernels line counts each kernel's launches over every path that runs it
+(`launches`, split in `launches_by_path`): the fused forward in both
+heads' serving and training, kernel A in both heads' training.
 The last three lines: the card as nvidia-smi reports it, one JSON line of
 per-kernel numbers, and {"ok": true, "device": ...}. The profiler's full
 tables go to <out-dir>/chip_smoke_profile.txt and
-<out-dir>/chip_smoke_train_profile.txt (`--out-dir`, default
-build/chip_smoke), where the checkpoint of phase 8 is written and
-removed.
+<out-dir>/chip_smoke_train_profile.txt, and the transformer's to
+<out-dir>/chip_smoke_transformer_profile.txt and
+<out-dir>/chip_smoke_transformer_train_profile.txt (`--out-dir`, default
+build/chip_smoke), where the checkpoints of phases 8 and 11 are written
+and removed.
 """
 
 from __future__ import annotations
@@ -382,10 +401,12 @@ def roi_stage(roi, feats, boxes, hw, flush):
     return res
 
 
-def serve(dev, model, api, normalize_images, roi, flush):
+def serve(dev, model, api, normalize_images, roi, flush, label="serving",
+          card=""):
     """The main path at full width: greedy and beam-3 region decode of
     8 images × 32 regions, timed after warm-up, with each ROI wrapper's
-    launch count over the timed run. Returns a dict of the numbers."""
+    launch count over the timed run. Returns a dict of the numbers,
+    printed after `label` with the `card`."""
     rng = np.random.RandomState(SEED)
     images_u8 = torch.from_numpy(rng.randint(
         0, 256, (N_IMAGES, IMAGE, IMAGE, 3), dtype=np.uint8)).to(dev)
@@ -454,7 +475,7 @@ def serve(dev, model, api, normalize_images, roi, flush):
         encode_ms = cuda_ms(lambda: model.encode_flat(x, boxes), iters=5)
 
     res_d = {
-        "regions": regions, "steps": SEQ + 1, "beam": BEAM,
+        "card": card, "regions": regions, "steps": SEQ + 1, "beam": BEAM,
         "greedy_ms": greedy_ms, "beam_ms": beam_ms,
         "greedy_regions_per_s": regions / greedy_ms * 1e3,
         "beam3_regions_per_s": regions / beam_ms * 1e3,
@@ -465,15 +486,19 @@ def serve(dev, model, api, normalize_images, roi, flush):
         "beam_finished_share": float(res.finished[:, 0].float().mean()),
         "greedy_tokens_head": toks[0].tolist(),
     }
-    print(f"serving: {json.dumps(res_d)}", flush=True)
+    print(f"{label}: {json.dumps(res_d)}", flush=True)
     return res_d, run_beam, run_greedy
 
 
-def profile(run_beam, run_greedy, out_dir: Path):
-    """Device busy share and time by kernel for one beam and one greedy
-    decode (torch.profiler); the full tables go to `out_dir`."""
+def profile(run_beam, run_greedy, out_dir: Path, label="profile", card="",
+            table="chip_smoke_profile.txt", served=None):
+    """Device busy share, kernels and copies launched, and time by kernel
+    for one beam and one greedy decode (torch.profiler); the full tables
+    go to `out_dir`/`table`. The idle share is read against the profiled
+    call, whose host time the profiler's CPU tracing inflates, and, given
+    `served` (`serve`'s result), against its event-timed ms per call."""
     from torch.profiler import ProfilerActivity, profile as prof
-    out = {}
+    out = {"card": card}
     tables = []
     for name, fn in (("beam", run_beam), ("greedy", run_greedy)):
         with prof(activities=[ProfilerActivity.CPU,
@@ -492,19 +517,25 @@ def profile(run_beam, run_greedy, out_dir: Path):
             "device_busy_ms": dev_ms,
             "device_idle_share": (1 - dev_ms / wall_ms) if dev_ms
             else "not measured",
+            "device_idle_share_of_timed_call":
+                (1 - dev_ms / served[f"{name}_ms"]) if dev_ms and served
+                else "not measured",
+            "kernels_and_copies": sum(e.count for e in kernels),
             "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
                                for e in kernels[:8]},
         }
         tables.append(f"== {name} ==\n" + events.table(
             sort_by="self_device_time_total", row_limit=30))
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "chip_smoke_profile.txt").write_text("\n".join(tables))
-    print(f"profile: {json.dumps(out)}", flush=True)
+    (out_dir / table).write_text("\n".join(tables))
+    print(f"{label}: {json.dumps(out)}", flush=True)
     return out
 
 
-def reference_check(dev, model, build, api):
-    """Full-width weights in fp32 on the card vs on the CPU, small input."""
+def reference_check(dev, model, build, api, label="reference check (fp32 "
+                    "card vs CPU, full width)", card="", same_tokens=False):
+    """Full-width weights in fp32 on the card vs on the CPU, small input;
+    with `same_tokens`, greedy and beam-3 tokens must be identical too."""
     sd = {k: v.float().cpu() for k, v in model.state_dict().items()}
     twins = []
     for d in (torch.device("cpu"), dev):
@@ -522,13 +553,23 @@ def reference_check(dev, model, build, api):
     tok_cpu = api.make_region_greedy_fn(twins[0], SEQ + 1)(x, boxes)
     tok_dev = api.make_region_greedy_fn(twins[1], SEQ + 1)(
         x.to(dev), boxes.to(dev)).cpu()
-    res = {"logits_max_abs_err": err,
+    res = {"card": card, "logits_max_abs_err": err,
            "logits_max_abs": float(want.abs().max()),
            "greedy_token_agreement": float((tok_cpu == tok_dev).float().mean())}
-    print(f"reference check (fp32 card vs CPU, full width): {json.dumps(res)}",
-          flush=True)
+    if same_tokens:
+        beam_cpu = api.make_region_beam_fn(twins[0], SEQ + 1, BEAM)(x, boxes)
+        beam_dev = api.make_region_beam_fn(twins[1], SEQ + 1, BEAM)(
+            x.to(dev), boxes.to(dev))
+        res["beam_token_agreement"] = float(
+            (beam_cpu.tokens == beam_dev.tokens.cpu()).float().mean())
+        res["beam_score_max_abs_err"] = float(
+            (beam_cpu.scores - beam_dev.scores.cpu()).abs().max())
+    print(f"{label}: {json.dumps(res)}", flush=True)
     if not (np.isfinite(err) and err <= LOGIT_TOL):
         raise AssertionError(f"card logits differ from the CPU's by {err}")
+    if same_tokens and not (res["greedy_token_agreement"] == 1.0
+                            and res["beam_token_agreement"] == 1.0):
+        raise AssertionError(f"card tokens differ from the CPU's: {res}")
     return res
 
 
@@ -671,9 +712,10 @@ def same_state(a, b) -> bool:
     return a == b
 
 
-def train(dev, roi, out_dir: Path):
-    """Full-width training (phase 8) → its numbers (raises on a failed
-    check)."""
+def train(dev, roi, out_dir: Path, use_lstm=True, label="training", card="",
+          table="chip_smoke_train_profile.txt"):
+    """Full-width training (phase 8; phase 11 with `use_lstm` False) → its
+    numbers (raises on a failed check)."""
     from torch.profiler import ProfilerActivity, profile as prof
 
     from imagecaptioning_tpu_torch.config.dense_configs import DenseConfig
@@ -684,7 +726,7 @@ def train(dev, roi, out_dir: Path):
 
     arrays, info = make_train_data(np.random.RandomState(SEED + 2))
     loader = VGDataLoader(arrays=arrays, info=info)
-    cfg = DenseConfig(use_lstm=True, batch_size=TRAIN_BATCH,
+    cfg = DenseConfig(use_lstm=use_lstm, batch_size=TRAIN_BATCH,
                       max_regions=N_REGIONS)
     # as train_gt: the train split's image count, read as an update count
     finetune_start = len(loader.train_ix)
@@ -769,7 +811,7 @@ def train(dev, roi, out_dir: Path):
                     "elementwise, reductions, other")
         by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "chip_smoke_train_profile.txt").write_text(events.table(
+    (out_dir / table).write_text(events.table(
         sort_by="self_device_time_total", row_limit=40))
 
     # a full checkpoint, saved and restored into a fresh model and
@@ -798,6 +840,7 @@ def train(dev, roi, out_dir: Path):
     del model2, opt2
 
     res = {
+        "card": card,
         "images": f"{TRAIN_BATCH} x {TRAIN_IMAGE}^2 uint8, {N_REGIONS} "
                   f"regions each, vocab {VOCAB}, seq {SEQ}",
         "steps_timed": steps, "window_step_ms": window_ms,
@@ -821,18 +864,20 @@ def train(dev, roi, out_dir: Path):
         "checkpoint": {"gb": ckpt_gb, "save_s": save_s,
                        "round_trip_bitwise": round_trip},
     }
-    print(f"training: {json.dumps(res)}", flush=True)
+    print(f"{label}: {json.dumps(res)}", flush=True)
     return res
 
 
-def train_step_check(dev):
+def train_step_check(dev, use_lstm=True, label="train step (fp32 card vs "
+                     "CPU, full width)", card=""):
     """One fp32 train step at full width on the card vs the CPU from the
-    same weights, small input, dropout off on both (phase 9)."""
+    same weights, small input, dropout off on both (phase 9; phase 11 with
+    `use_lstm` False)."""
     from imagecaptioning_tpu_torch.config.dense_configs import DenseConfig
     from imagecaptioning_tpu_torch.train import dense_driver as dd
     from imagecaptioning_tpu_torch.utils.weights import seeded_init_
 
-    cfg = DenseConfig(use_lstm=True, compute_dtype="float32")
+    cfg = DenseConfig(use_lstm=use_lstm, compute_dtype="float32")
     rng = np.random.RandomState(SEED + 3)
     images = torch.from_numpy(rng.randint(0, 256, (2, 96, 96, 3),
                                           dtype=np.uint8))
@@ -863,15 +908,14 @@ def train_step_check(dev):
             worst, worst_name = float(d.max()), name
         off += int((d > 1e-7).sum())
         total += d.numel()
-    res = {"loss_cpu": losses[0], "loss_card": losses[1],
+    res = {"card": card, "loss_cpu": losses[0], "loss_card": losses[1],
            "loss_rel_err": loss_rel, "param_max_abs_diff": worst,
            "param_max_abs_diff_at": worst_name,
            "params_over_1e-7_share": off / total,
            "tolerance": f"loss {LOSS_REL_TOL} relative; params within "
                         f"2 lr = {2 * cfg.learning_rate}, at most 1e-5 of "
                         f"them more than 1e-7 apart"}
-    print(f"train step (fp32 card vs CPU, full width): {json.dumps(res)}",
-          flush=True)
+    print(f"{label}: {json.dumps(res)}", flush=True)
     if not (loss_rel <= LOSS_REL_TOL and worst <= 2 * cfg.learning_rate
             + 1e-7 and off / total <= 1e-5):
         raise AssertionError(f"card train step differs from the CPU's: "
@@ -925,24 +969,47 @@ def main() -> int:
     canvas_roi, canvas_calls = check_roi_kernel(
         dev, roi, 1, N_REGIONS, 720 // 32, 512, 720, 200, flush)
 
-    def build(d, dtype):
+    def build(d, dtype, use_lstm=True):
         with torch.device(d):
             m = GTDenseCaptioner(vocab_size=VOCAB, seq_length=SEQ,
-                                 embedding_size=512, rnn_size=512,
-                                 num_lstm_layers=1, vgg_stages=5,
-                                 compute_dtype=dtype)
+                                 use_lstm=use_lstm, embedding_size=512,
+                                 rnn_size=512, num_lstm_layers=1,
+                                 vgg_stages=5, compute_dtype=dtype)
         return m.eval()
 
-    t0 = time.perf_counter()
-    model = weights.seeded_init_(build(dev, torch.bfloat16), SEED)
-    print(f"model init (seed {SEED}): {time.perf_counter() - t0:.2f} s, "
-          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params")
+    def seeded(use_lstm):
+        t0 = time.perf_counter()
+        model = weights.seeded_init_(build(dev, torch.bfloat16, use_lstm),
+                                     SEED)
+        print(f"model init ({'LSTM' if use_lstm else 'transformer'} head, "
+              f"seed {SEED}): {time.perf_counter() - t0:.2f} s, "
+              f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+              f"params")
+        return model
+
+    model = seeded(True)
     served, run_beam, run_greedy = serve(dev, model, api, normalize_images,
-                                         roi, flush)
+                                         roi, flush, card=smi)
     add_cupti(slice_roi, slice_calls, 200, flush)
     add_cupti(canvas_roi, canvas_calls, 200, flush)
-    prof = profile(run_beam, run_greedy, args.out_dir)
-    ref = reference_check(dev, model, build, api)
+    prof = profile(run_beam, run_greedy, args.out_dir, card=smi,
+                   served=served)
+    ref = reference_check(dev, model, build, api, card=smi)
+    del model, run_beam, run_greedy
+
+    # phase 10: the transformer head, the reference's default GT model
+    model = seeded(False)
+    t_served, run_beam, run_greedy = serve(
+        dev, model, api, normalize_images, roi, flush,
+        label="transformer serving", card=smi)
+    t_prof = profile(run_beam, run_greedy, args.out_dir,
+                     label="transformer profile", card=smi,
+                     table="chip_smoke_transformer_profile.txt",
+                     served=t_served)
+    t_ref = reference_check(
+        dev, model, lambda d, dtype: build(d, dtype, use_lstm=False), api,
+        label="transformer reference check (fp32 card vs CPU, full width)",
+        card=smi, same_tokens=True)
     del model, run_beam, run_greedy
 
     train_bwd, train_bwd_calls = check_roi_backward(
@@ -952,19 +1019,36 @@ def main() -> int:
         dev, roi, N_IMAGES, N_REGIONS, IMAGE // 32, 512, IMAGE, 200, flush)
     add_cupti(train_bwd, train_bwd_calls, 200, flush)
     add_cupti(serve_bwd, serve_bwd_calls, 200, flush)
-    trained = train(dev, roi, args.out_dir)
-    step_check = train_step_check(dev)
+    trained = train(dev, roi, args.out_dir, card=smi)
+    step_check = train_step_check(dev, card=smi)
+    # phase 11: the transformer head's training
+    t_trained = train(dev, roi, args.out_dir, use_lstm=False,
+                      label="transformer training", card=smi,
+                      table="chip_smoke_transformer_train_profile.txt")
+    t_step_check = train_step_check(
+        dev, use_lstm=False, card=smi,
+        label="transformer train step (fp32 card vs CPU, full width)")
 
     # the serving path's kernel: the fused entry, bf16 map → bf16 codes
     main_case = slice_roi["roi_align_batch_chw bf16->bf16 CHW"]
+    # launches over every path that runs the kernel: both heads' serving
+    # and training
+    serving = {"lstm": served["launches"], "transformer": t_served["launches"]}
+    training = {"lstm": trained["launches"],
+                "transformer": t_trained["launches"]}
     kernel = {
         "name": "roi_align_batch_chw", "route": "cuda",
         "source": "imagecaptioning_tpu_torch/csrc/roi_align.cu",
         "replaces": "imagecaptioning_tpu/ops/roi_align.py:204",
-        "launches": served["launches"]["roi_align_batch_chw"],
-        "max_abs_err": max(main_case["max_abs_err"], served[
-            "roi_checks_on_trunk_output"][
-            "roi_align_batch_chw bf16->bf16 CHW"]["max_abs_err"]),
+        "launches": sum(v["roi_align_batch_chw"]
+                        for path in (serving, training)
+                        for v in path.values()),
+        # the entry's checks here and on both heads' served trunk output
+        "max_abs_err": max(
+            main_case["max_abs_err"],
+            *(run["roi_checks_on_trunk_output"][
+                "roi_align_batch_chw bf16->bf16 CHW"]["max_abs_err"]
+              for run in (served, t_served))),
         "tolerance": "one bf16 ulp per element",
         "ms": main_case["ms_cold"],
         **{k: main_case[k] for k in ("ms_hot", "kernel_ms_cold",
@@ -975,10 +1059,9 @@ def main() -> int:
         "also_replaces": "imagecaptioning_tpu/ops/roi_align.py:127 "
                          "(roi_align_pallas_fwd): the same kernel's NHWC "
                          "entry roi_align_batch, and roi_align at N=1",
-        "launches_by_wrapper": served["launches"],
+        "launches_by_path": {"serving": serving, "training": training},
         "entries": {"serving_shape": slice_roi, "n1_canvas": canvas_roi},
     }
-    kernel["launches_training"] = trained["launches"]["roi_align_batch_chw"]
     backward = []
     for name in ("roi_align_bwd_features", "roi_align_bwd_boxes"):
         # the training path's case: bf16 map, bf16 CHW gradient from fc6
@@ -987,8 +1070,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "imagecaptioning_tpu_torch/csrc/roi_align_bwd.cu",
             "replaces": "imagecaptioning_tpu/ops/roi_align.py:234-242",
-            "launches": trained["launches"][name],
-            "main_path": ("GT training, once a step"
+            "launches": sum(v[name] for v in training.values()),
+            "main_path": ("GT training with either head, once a step"
                           if name == "roi_align_bwd_features" else
                           "none yet: GT boxes are data, so GT training "
                           "never asks for d_boxes; the RPN slice will"),
@@ -1010,8 +1093,13 @@ def main() -> int:
                 "serving_shape": {k: v for k, v in serve_bwd.items()
                                   if k.startswith(name + " ")}},
         })
-    summary = {"serving": served, "profile": prof, "reference_check": ref,
-               "training": trained, "train_step_check": step_check,
+    summary = {"card": smi, "serving": served, "profile": prof,
+               "reference_check": ref, "training": trained,
+               "train_step_check": step_check,
+               "transformer": {"serving": t_served, "profile": t_prof,
+                               "reference_check": t_ref,
+                               "training": t_trained,
+                               "train_step_check": t_step_check},
                "seconds": time.perf_counter() - t_start}
     print(f"summary: {json.dumps(summary)}")
     print(smi)

@@ -2,7 +2,8 @@
 (`--model-type gt`, its `caption_dense`).
 
 Captions proposed regions of every image in a directory with the fused
-greedy or beam region decoder:
+greedy or beam region decoder, through the GT config's caption head: the
+transformer head by default, the LSTM head with `--set use_lstm=true`:
 
   python -m imagecaptioning_tpu_torch.infer --model-type gt \\
       --ckpt gt_model.pth --dicts data/VG-regions-dicts.json \\
@@ -37,7 +38,7 @@ from imagecaptioning_tpu_torch.utils.platform import resolve_device
 from imagecaptioning_tpu_torch.utils.weights import load_gt_checkpoint
 
 CANVAS = 720
-# The slice each other --model-type waits for (ROADMAP.md, Queue 1).
+# The slice each AlexCap --model-type waits for (ROADMAP.md, Queue 1).
 _NOT_PORTED = {
     "lstm": "Slice D — AlexCap LSTM + ResNet-101 trainer",
     "lstm_attention": "Slice E — the other caption families",
@@ -112,7 +113,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model-type", default="gt",
                    choices=["lstm", "lstm_attention", "transformer",
-                            "vitb", "gt"])
+                            "vitb", "gt"],
+                   help="gt: the GT-box dense captioner (ported); the "
+                        "AlexCap families raise until their slices land")
     p.add_argument("--ckpt", required=True)
     p.add_argument("--dicts", required=True)
     p.add_argument("--images", required=True)
@@ -121,7 +124,8 @@ def main(argv=None):
     p.add_argument("--max-regions", type=int, default=32,
                    help="region-slab budget per image")
     p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
-                   help="config overrides (must match the checkpoint)")
+                   help="config overrides (must match the checkpoint), "
+                        "e.g. use_lstm=true for an LSTM-head checkpoint")
     p.add_argument("--device", default=None,
                    help="torch device (default: the first CUDA card)")
     p.add_argument("--out", default="")

@@ -11,8 +11,12 @@ over `max_steps` with the same fixed shapes and the same rules:
   beam passes True);
 - the answer is the best finished beam, the best unfinished one only if
   none finished;
-- the carry is a tuple of batch-major (B·K, ...) tensors, gathered along
-  the beam axis with the parent indices each step.
+- the carry is a tree (a tensor, or tuples and lists of trees) of
+  batch-major (B·K, ...) tensors, gathered along the beam axis with the
+  parent indices each step. What is the same for every beam of a batch element
+  (the transformer's encoder output and cross-attention keys and values)
+  stays out of it: the step closes over it, as JAX's
+  `_beam_invariant_step` does.
 
 A decode step is `step_fn(carry, tokens (B, 1), t) -> (carry, logits
 (B, V))`.
@@ -28,25 +32,38 @@ DecodeStep = Callable[[Any, torch.Tensor, int], Tuple[Any, torch.Tensor]]
 NEG = -1e30
 
 
-def _gather_beams(carry: Tuple[torch.Tensor, ...], parents: torch.Tensor,
-                  batch: int, k: int) -> Tuple[torch.Tensor, ...]:
+def _tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
+    """`fn` over every tensor of a tree of tuples and lists."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return type(tree)(_tree_map(fn, leaf) for leaf in tree)
+
+
+def _first_leaf(tree: Any) -> torch.Tensor:
+    while not isinstance(tree, torch.Tensor):
+        tree = tree[0]
+    return tree
+
+
+def _gather_beams(carry: Any, parents: torch.Tensor, batch: int,
+                  k: int) -> Any:
     """Reindex every (B*K, ...) tensor by per-batch parent beam indices."""
     flat = (parents + k * torch.arange(batch, device=parents.device)[:, None]
             ).reshape(-1)
-    return tuple(leaf.index_select(0, flat) for leaf in carry)
+    return _tree_map(lambda leaf: leaf.index_select(0, flat), carry)
 
 
-def expand_for_beams(carry: Tuple[torch.Tensor, ...],
-                     beam_size: int) -> Tuple[torch.Tensor, ...]:
+def expand_for_beams(carry: Any, beam_size: int) -> Any:
     """Tile every (B, ...) tensor to (B*K, ...) beam-major within batch."""
-    return tuple(leaf.repeat_interleave(beam_size, dim=0) for leaf in carry)
+    return _tree_map(lambda leaf: leaf.repeat_interleave(beam_size, dim=0),
+                    carry)
 
 
 def greedy_decode(step_fn: DecodeStep, carry: Any, batch: int,
                   start_token: int, max_steps: int) -> torch.Tensor:
     """Greedy argmax decode for a fixed step count → tokens (B, max_steps).
     `argmax` takes the first maximum, as `jnp.argmax` does."""
-    device = next(iter(carry)).device
+    device = _first_leaf(carry).device
     tok = torch.full((batch, 1), start_token, dtype=torch.long, device=device)
     out = []
     for t in range(max_steps):
@@ -68,7 +85,7 @@ def beam_search(step_fn: DecodeStep, carry: Any, batch: int, beam_size: int,
     """Fixed-shape batched beam search. `carry` must already be expanded
     to B*K along its batch axis (beam-major within batch)."""
     k = beam_size
-    device = next(iter(carry)).device
+    device = _first_leaf(carry).device
     tokens = torch.full((batch, k, max_steps), end_token, dtype=torch.long,
                         device=device)
     scores = torch.full((batch, k), NEG, dtype=torch.float32, device=device)

@@ -2,8 +2,11 @@
 `imagecaptioning_tpu/ops/tokens.py:26-72`).
 
 The AlexCap family and the GT LSTM head use NULL=0, START=V+1, END=V+2
-(LanguageModule.py:39-41). The DenseCap transformers' sos=V-2/eos=V-1
-convention comes with the transformer head's slice.
+(LanguageModule.py:39-41). The DenseCap transformers index sos=V-2 and
+eos=V-1 over a V+3 table (`TokenSpec.densecap`); the GT transformer head
+builds it over V+3, so its ids are the same V+1 and V+2. Its targets scan
+for the first NULL from t=0 (`decoder_target(..., scan_from=0)`), the LSTM
+head's from t=1.
 """
 
 from __future__ import annotations
@@ -26,6 +29,11 @@ class TokenSpec:
     @classmethod
     def alexcap(cls, vocab_size: int) -> "TokenSpec":
         return cls(vocab_size, 0, vocab_size + 1, vocab_size + 2, vocab_size + 3)
+
+    @classmethod
+    def densecap(cls, vocab_size: int) -> "TokenSpec":
+        # DenseCap transformers index sos/eos *below* V over a V+3 table.
+        return cls(vocab_size, 0, vocab_size - 2, vocab_size - 1, vocab_size + 3)
 
 
 def decoder_input(gt: torch.Tensor, start_token: int) -> torch.Tensor:

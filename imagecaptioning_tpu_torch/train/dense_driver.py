@@ -13,7 +13,9 @@ newest full-state checkpoint and a preemption checkpoint on SIGTERM.
 A step (`make_gt_train_step`) normalizes the uint8 images on the device,
 runs the captioner in training mode (VGG16 and the classifier in bf16
 over fp32 master weights, the ROI kernel forward and its backward
-kernel, the LSTM head in fp32), backpropagates and takes one optimizer
+kernel, the caption head in fp32: the transformer head of the default
+config, or the LSTM head with `use_lstm`), backpropagates and takes one
+optimizer
 update. Runs on the first CUDA card unless the caller passes
 `device="cpu"`.
 """
@@ -145,7 +147,9 @@ def make_dense_optimizer(cfg: DenseConfig, model: GTDenseCaptioner,
 def build_gt_model(cfg: DenseConfig, vocab_size: int, seq_length: int,
                    device: torch.device) -> GTDenseCaptioner:
     """The captioner for `cfg` on `device`: compute in
-    `cfg.compute_dtype`, parameters in `cfg.param_dtype`."""
+    `cfg.compute_dtype`, parameters in `cfg.param_dtype`. The transformer
+    head (`use_lstm` False) takes the model's default widths, as the JAX
+    driver does: `num_layers` sizes the LSTM only."""
     with torch.device(device):
         return GTDenseCaptioner(
             vocab_size=vocab_size, seq_length=seq_length,

@@ -1,5 +1,6 @@
 """GT-box dense-caption training CLI — the port's counterpart of the root
-`traingt.py` (AlexGTModel: VGG16 → GT-box ROI pooling → LSTM captioner).
+`traingt.py` (AlexGTModel: VGG16 → GT-box ROI pooling → the transformer
+caption head, or the LSTM head with `use_lstm=true`).
 
   python -m imagecaptioning_tpu_torch.traingt [key=value ...] [--device cpu]
 

@@ -5,11 +5,14 @@
   reference AlexGTModel key layout. The layout logic is a copy of
   `imagecaptioning_tpu/utils/torch_port.py` (`export_conv`/`export_linear`
   :610-622, `export_vgg_features`/`export_vgg_classifier` :664-687,
-  `export_lstm`/`export_reference_lstm_head` :730-762), not an import.
+  `export_lstm`/`export_reference_lstm_head` :730-762,
+  `export_reference_transformer` and its block and decoder helpers
+  :789-836), not an import.
 - `load_gt_checkpoint`: a `torch.save`d state dict in that layout (what
   the JAX package's `export_reference_gt_model` + `save_state_dict`
   write, or a reference `.pth`), minus the reference's duplicate `net.*`
-  registrations of the same tensors.
+  registrations of the same tensors and, for the transformer head, its
+  dead encoder word embedding and the encoder position rows after row 0.
 - `gt_train_state_from_jax`: a JAX GT training state (params and the
   optax Adam state of each group) → the port's model and optimizer state
   dicts, so that a JAX run resumes in the port.
@@ -41,7 +44,14 @@ def _conv(block: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
 
 
 def _linear(block: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
-    return {f"{prefix}.weight": _t(np.asarray(block["kernel"]).T),
+    sd = {f"{prefix}.weight": _t(np.asarray(block["kernel"]).T)}
+    if "bias" in block:
+        sd[f"{prefix}.bias"] = _t(block["bias"])
+    return sd
+
+
+def _norm(block: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _t(block["scale"]),
             f"{prefix}.bias": _t(block["bias"])}
 
 
@@ -114,15 +124,66 @@ def language_head_state_dict(params: Mapping,
     return sd
 
 
+def _attention_state_dict(attention: Mapping, prefix: str
+                          ) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("values", "keys", "queries", "fc_out"):
+        sd.update(_linear(attention[name], f"{prefix}.{name}"))
+    return sd
+
+
+def _transformer_block_state_dict(block: Mapping, prefix: str
+                                  ) -> Dict[str, torch.Tensor]:
+    sd = _attention_state_dict(block["attention"], f"{prefix}.attention")
+    sd.update(_norm(block["norm1"], f"{prefix}.norm1"))
+    sd.update(_norm(block["norm2"], f"{prefix}.norm2"))
+    sd.update(_linear(block["ff1"], f"{prefix}.feed_forward.0"))
+    sd.update(_linear(block["ff2"], f"{prefix}.feed_forward.2"))
+    return sd
+
+
+def transformer_head_state_dict(params: Mapping, prefix: str = "llm"
+                                ) -> Dict[str, torch.Tensor]:
+    """The GT transformer head's params ({fc, encoder, decoder}) → the
+    reference AlexTransformer's keys (`fc.0`, `encoder.*`, `decoder.*`)."""
+    enc, dec = params["encoder"], params["decoder"]
+    sd = _linear(params["fc"], f"{prefix}.fc.0")
+    sd[f"{prefix}.encoder.position_embedding.weight"] = _t(
+        enc["position_embedding"])
+    i = 0
+    while f"layer_{i}" in enc:
+        sd.update(_transformer_block_state_dict(
+            enc[f"layer_{i}"], f"{prefix}.encoder.layers.{i}"))
+        i += 1
+    sd[f"{prefix}.decoder.word_embedding.weight"] = _t(
+        dec["word_embedding"]["embedding"])
+    sd[f"{prefix}.decoder.position_embedding.weight"] = _t(
+        dec["position_embedding"])
+    sd.update(_linear(dec["fc_out"], f"{prefix}.decoder.fc_out"))
+    i = 0
+    while f"layer_{i}" in dec:
+        layer, t = dec[f"layer_{i}"], f"{prefix}.decoder.layers.{i}"
+        sd.update(_norm(layer["norm"], f"{t}.norm"))
+        sd.update(_attention_state_dict(layer["attention"],
+                                        f"{t}.attention"))
+        sd.update(_transformer_block_state_dict(layer["transformer_block"],
+                                                f"{t}.transformer_block"))
+        i += 1
+    return sd
+
+
 def gt_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX `GTDenseCaptioner` (use_lstm=True) params → the port's
+    """JAX `GTDenseCaptioner` params (either head) → the port's
     state_dict in the reference AlexGTModel key layout."""
     sd = vgg_features_state_dict(params["features"])
     last = sd[max((k for k in sd if k.endswith(".weight")),
                   key=lambda k: int(k.split(".")[1]))]
     sd.update(vgg_classifier_state_dict(params["classifier"],
                                         channels=last.shape[0]))
-    sd.update(language_head_state_dict(params["llm"]))
+    if "llm" in params:
+        sd.update(language_head_state_dict(params["llm"]))
+    else:
+        sd.update(transformer_head_state_dict(params))
     return sd
 
 
@@ -162,9 +223,18 @@ def gt_train_state_from_jax(params: Mapping, adam: Mapping,
 def load_gt_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """Load a reference-layout GT state dict saved with `torch.save`,
     dropping the `net.vgg16_backbone.*`/`net.full_conv.*` duplicates the
-    reference registers for the same tensors."""
+    reference registers for the same tensors. A transformer head's encoder
+    keeps position row 0 only, the one its single projected code reads,
+    and loses its `word_embedding`, which the reference's forward never
+    uses (AlexTransformer.py:111, :313-316; as the JAX package's
+    `convert_reference_gt_model`)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    return {k: v for k, v in sd.items() if not k.startswith("net.")}
+    sd = {k: v for k, v in sd.items() if not k.startswith("net.")
+          and k != "llm.encoder.word_embedding.weight"}
+    positions = "llm.encoder.position_embedding.weight"
+    if positions in sd:
+        sd[positions] = sd[positions][:1]
+    return sd
 
 
 @torch.no_grad()

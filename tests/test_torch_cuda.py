@@ -12,7 +12,8 @@ reciprocal). bf16 codes of the fused CHW entry: within one bf16 ulp of
 the plain version's fp32 codes rounded to bf16 (the two fp32 sums may
 differ in the last bit, which can move the rounding by one step). 1e-4
 between the tiny model on the card and on the CPU
-(fp32 with TF32 off; cuDNN and cuBLAS sum in another order).
+(fp32 with TF32 off; cuDNN and cuBLAS sum in another order), for either
+caption head, with identical greedy and beam-3 tokens.
 The ROI backward kernels against the plain backward (autograd through the
 plain forward): d_features within 1e-5 max-abs in fp32 and within one
 bf16 ulp for a bf16 map (both round an fp32 sum once, in another order);
@@ -271,7 +272,40 @@ def test_autograd_through_the_pooling_launches_the_kernels(card):
 
 
 @pytest.mark.cuda
-def test_tiny_train_step_on_card_matches_cpu(card):
+def test_tiny_transformer_on_card_matches_cpu(card):
+    """The GT transformer head at its default width (E=256, 3 + 3 layers,
+    4 heads) over a 2-stage trunk, fp32: teacher-forced logits (NULL pads
+    included, so some score rows are fully masked) within 1e-4 of the
+    CPU's; greedy and beam-3 tokens identical, beam scores within 1e-4."""
+    kw = dict(vocab_size=24, seq_length=5, vgg_stages=2, use_lstm=False)
+    cpu = seeded_init_(GTDenseCaptioner(**kw).eval(), 0)
+    gpu = GTDenseCaptioner(**kw).eval().to(card)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(5)
+    images = torch.from_numpy(rng.randn(2, 32, 32, 3).astype(np.float32))
+    boxes = _boxes(rng, 2, 4, 32.0, 32.0)
+    labels = torch.from_numpy(rng.randint(1, 25, (2, 4, 5)))
+    labels[0, 1, 2:] = 0
+    labels[1, 2] = 0
+    with torch.inference_mode():
+        want = cpu(images, boxes, labels).logits
+        got = gpu(images.to(card), boxes.to(card), labels.to(card)).logits
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    toks = api.make_region_greedy_fn(gpu, 6)(images.to(card), boxes.to(card))
+    assert torch.equal(toks.cpu(),
+                       api.make_region_greedy_fn(cpu, 6)(images, boxes))
+    beam = api.make_region_beam_fn(gpu, 6, 3)(images.to(card), boxes.to(card))
+    beam_cpu = api.make_region_beam_fn(cpu, 6, 3)(images, boxes)
+    assert torch.equal(beam.tokens.cpu(), beam_cpu.tokens)
+    assert torch.equal(beam.finished.cpu(), beam_cpu.finished)
+    torch.testing.assert_close(beam.scores.cpu(), beam_cpu.scores, rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_lstm", [True, False])
+def test_tiny_train_step_on_card_matches_cpu(card, use_lstm):
     """One fp32 train step (Adam, every group moving) from the same weights
     on the card and on the CPU, dropout off on both (the two devices'
     generators draw different masks): the loss within 1e-4 relative; each
@@ -281,8 +315,8 @@ def test_tiny_train_step_on_card_matches_cpu(card):
     from imagecaptioning_tpu_torch.config.dense_configs import DenseConfig
     from imagecaptioning_tpu_torch.train import dense_driver as dd
 
-    cfg = DenseConfig(use_lstm=True, compute_dtype="float32", vgg_stages=3,
-                      input_encoding_size=16, rnn_size=16)
+    cfg = DenseConfig(use_lstm=use_lstm, compute_dtype="float32",
+                      vgg_stages=3, input_encoding_size=16, rnn_size=16)
     twins = [dd.build_gt_model(cfg, 24, 5, d)
              for d in (torch.device("cpu"), card)]
     twins[1].load_state_dict(seeded_init_(twins[0], 0).state_dict())

@@ -9,8 +9,11 @@ both sides run on the same numpy inputs, fp32:
 - greedy region tokens: identical;
 - beam-3 region tokens and finished flags: identical; scores: rtol and
   atol 1e-5 (log-softmax sums in another order).
-Also: the port's infer CLI against the JAX CLI on two tiny PNGs, the
-raise when CUDA is absent, and that the port imports nothing of JAX.
+Also: the port's infer CLI against the JAX CLI on two tiny PNGs, with
+either head (the transformer at its default width, E=256, 3 + 3 layers,
+4 heads, from a reference-layout checkpoint with the encoder's dead word
+embedding and full position table), the raise when CUDA is absent, and
+that the port imports nothing of JAX.
 """
 
 import ast
@@ -103,18 +106,44 @@ def test_beam3_region_decode_matches_jax(pair):
                                rtol=1e-5, atol=1e-5)
 
 
-def test_infer_cli_matches_jax_cli(pair, tmp_path):
+@pytest.fixture(scope="module")
+def transformer_pair(pair):
+    """(jax model, jax variables, port model): the GT transformer head at
+    its default width over the same 2-stage trunk."""
+    _, _, _, images, boxes, labels = pair
+    kw = {k: KW[k] for k in ("vocab_size", "seq_length", "vgg_stages")}
+    jm = JaxGT(use_lstm=False, **kw)
+    k = jax.random.PRNGKey(1)
+    v = jax.jit(jm.init)({"params": k, "sampling": k}, jnp.asarray(images),
+                         jnp.asarray(boxes), jnp.asarray(labels))
+    pm = GTDenseCaptioner(use_lstm=False, **kw).eval()
+    pm.load_state_dict(gt_state_dict_from_jax(
+        jax.tree.map(np.asarray, v["params"])))
+    return jm, v, pm
+
+
+@pytest.mark.parametrize("use_lstm", [True, False])
+def test_infer_cli_matches_jax_cli(pair, transformer_pair, tmp_path,
+                                   use_lstm):
     import infer as jax_infer
     from imagecaptioning_tpu.utils.checkpoint import save_checkpoint
 
-    jm, v, pm, _, _, _ = pair
-    # the reference layout, with its duplicate net.* registrations
+    jm, v, pm = pair[:3] if use_lstm else transformer_pair
+    # the reference layout, with its duplicate net.* registrations (and
+    # the transformer encoder's dead word embedding and full position
+    # table, which the port's loader drops)
     sd = dict(pm.state_dict())
     for k in list(sd):
         if k.startswith("features."):
             sd["net.vgg16_backbone." + k[len("features."):]] = sd[k]
         elif k.startswith("classifier."):
             sd["net.full_conv." + k[len("classifier."):]] = sd[k]
+    if not use_lstm:
+        sd["llm.encoder.word_embedding.weight"] = torch.zeros_like(
+            sd["llm.decoder.word_embedding.weight"])
+        pos = torch.zeros_like(sd["llm.decoder.position_embedding.weight"])
+        pos[:1] = sd["llm.encoder.position_embedding.weight"]
+        sd["llm.encoder.position_embedding.weight"] = pos
     torch.save(sd, str(tmp_path / "gt.pth"))
     save_checkpoint(str(tmp_path / "gt.ckpt"),
                     {"params": jax.tree.map(np.asarray, v["params"])})
@@ -129,11 +158,12 @@ def test_infer_cli_matches_jax_cli(pair, tmp_path):
     for i in range(2):
         Image.fromarray(rng.randint(0, 256, (120, 160, 3), dtype=np.uint8)
                         ).save(str(imdir / f"d{i}.png"))
+    head = (["input_encoding_size=16", "rnn_size=16", "use_lstm=true"]
+            if use_lstm else [])       # the transformer: the default config
     common = ["--model-type", "gt", "--dicts", str(tmp_path / "dicts.json"),
               "--images", str(imdir), "--seq-length", "5",
               "--max-regions", "4", "--set", "vgg_stages=2",
-              "input_encoding_size=16", "rnn_size=16", "use_lstm=true",
-              "compute_dtype=float32"]
+              "compute_dtype=float32", *head]
     got = port_infer.main(common + ["--ckpt", str(tmp_path / "gt.pth"),
                                     "--device", "cpu",
                                     "--out", str(tmp_path / "caps.json")])
@@ -157,7 +187,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         port_infer.main(["--model-type", "lstm", "--ckpt", "x.pth",
                          "--dicts", "x.json", "--images", "."])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GTDenseCaptioner(use_lstm=False, **KW)
+        port_infer.main(["--model-type", "vitb", "--ckpt", "x.pth",
+                         "--dicts", "x.json", "--images", "."])
 
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "imagecaptioning_tpu"}

@@ -16,7 +16,9 @@ Same numpy inputs and the same (converted) weights on both sides:
 - synthetic arrays and loader batches byte-equal, resume cursor included.
 Also: the classifier's dropout rate, bf16 compute over fp32 master
 weights giving serving's bf16 numbers, checkpoints (round trip and resume
-order), the driver and its CLI end to end, and the raise without CUDA.
+order), `train_gt` and its CLI end to end with either head (the
+transformer's tests against JAX are in `test_torch_gt_transformer.py`),
+and the raise without CUDA.
 """
 
 import json
@@ -487,27 +489,34 @@ def test_signal_checkpointer():
 
 # --------------------------------------------------------------- driver
 
-def _cli_args(tmp_path, **extra):
+def _cli_args(tmp_path, use_lstm=True, **extra):
+    """traingt's key=value list; the LSTM head 32 wide, or (`use_lstm`
+    False) the default config's transformer head at its default width."""
     kv = dict(data_h5=tmp_path / "missing.h5", data_json=tmp_path / "m.json",
               save_path=tmp_path / "models/best_gt.ckpt",
               loss_file=tmp_path / "loss_logs/loss_gt.json",
               result_file=tmp_path / "logs/results_gt.json", batch_size=2,
-              max_regions=3, rnn_size=32, input_encoding_size=32,
-              compute_dtype="float32", eval_batch_size=2, loss_log_pad=1,
-              vgg_stages=2, use_lstm=True, **extra)
+              max_regions=3, compute_dtype="float32", eval_batch_size=2,
+              loss_log_pad=1, vgg_stages=2, **extra)
+    if use_lstm:
+        kv.update(rnn_size=32, input_encoding_size=32, use_lstm=True)
     return [f"{k}={v}" for k, v in kv.items()]
 
 
+@pytest.mark.parametrize("use_lstm", [True, False])
 def test_train_gt_writes_histories_and_resumes_from_preempt(tmp_path,
-                                                            monkeypatch):
-    out = traingt.main(_cli_args(tmp_path, max_iters=2,
+                                                            monkeypatch,
+                                                            use_lstm):
+    out = traingt.main(_cli_args(tmp_path, use_lstm, max_iters=2,
                                  use_curriculum_learning=True,
                                  save_checkpoint_every=2) +
                        ["--device", "cpu"])
+    assert out["model"].use_lstm == use_lstm
     cfg = get_gt_config().replace(
         save_path=str(tmp_path / "models/best_gt.ckpt"),
         loss_file=str(tmp_path / "loss_logs/loss_gt.json"),
-        result_file=str(tmp_path / "logs/results_gt.json"), use_lstm=True)
+        result_file=str(tmp_path / "logs/results_gt.json"),
+        use_lstm=use_lstm)
     loss_file, result_file, save_path = name_gt_model(cfg)
     assert out["iters"] == 2 and np.isfinite(out["final_loss"])
     assert out["best_val_score"] is not None
@@ -525,14 +534,16 @@ def test_train_gt_writes_histories_and_resumes_from_preempt(tmp_path,
             os.kill(os.getpid(), signal.SIGTERM)
         return real(it)
     monkeypatch.setattr(dense_driver, "teacher_prob_schedule", preempt_at_3)
-    out = traingt.main(_cli_args(tmp_path, max_iters=6, from_checkpoint=True,
+    out = traingt.main(_cli_args(tmp_path, use_lstm, max_iters=6,
+                                 from_checkpoint=True,
                                  save_checkpoint_every=6) +
                        ["--device", "cpu"])
     assert out["iters"] == 3 and os.path.isfile(save_path + ".preempt")
     assert ckptlib.resume_path(save_path) == save_path + ".preempt"
     assert ckptlib.restore_checkpoint(save_path + ".preempt")["step"] == 3
     monkeypatch.setattr(dense_driver, "teacher_prob_schedule", real)
-    out = traingt.main(_cli_args(tmp_path, max_iters=4, from_checkpoint=True,
+    out = traingt.main(_cli_args(tmp_path, use_lstm, max_iters=4,
+                                 from_checkpoint=True,
                                  save_checkpoint_every=4) +
                        ["--device", "cpu"])
     assert out["iters"] == 4
