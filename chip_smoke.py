@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Card smoke run of the PyTorch port (imagecaptioning_tpu_torch): GT-box
 dense-caption serving and training on one CUDA card, with the LSTM head
-(phases 4–9) and the transformer head (phases 10–11).
+(phases 4–9) and the transformer head (phases 10–11), and the full RPN
+DenseCap model's training and serving (phases 12–15).
 
     python3 chip_smoke.py
 
@@ -66,10 +67,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    a full checkpoint saved and restored bitwise;
 9. one fp32 train step at full width on the card against the CPU from
    the same weights on a small input (dropout off on both): the loss
-   within 1e-4 relative and every parameter after the update within
-   2·lr of the CPU's (a first Adam update moves a weight by at most lr;
-   the sign of a gradient inside rounding noise may differ), with at
-   most 1e-5 of all weights more than 1e-7 apart;
+   within 1e-4 relative; each parameter's gradient before the update
+   within 1e-4 relative (|card - cpu| ≤ 1e-4 · (|cpu| + the tensor's
+   max |cpu|)) in all but 1 % of its elements (a ReLU input within
+   rounding of zero flips one unit's gradient); every parameter after
+   the update within 2·lr of the CPU's, with at most 1e-5 of all weights
+   more than 1e-7 apart (a first Adam update moves a weight by less than
+   lr whatever its gradient, so only the gradients can show a wrong
+   backward);
 10. the transformer head (the reference's default GT
    model: fc 4096→256,
    3 encoder and 3 decoder layers, 4 heads, FFN 1024, fp32 over the bf16
@@ -81,19 +86,55 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    logits on the card against the CPU's as in 6, within 1e-4, with
    greedy and beam-3 tokens identical;
 11. (run after 9) the transformer head's training as in 8 (kernel A once
-   per step) and its fp32 train step on the card against the CPU as in 9.
-Every line of phases 4–11 carries the card's name and power limit. The
+   per step) and its fp32 train step on the card against the CPU as in 9;
+12. the RPN model (`get_densecap_config()`: VGG16 without its last pool,
+   a 45×45×512 map at 720², the reference's 12 anchors, 128 + 128 sampled
+   boxes) from seed 0: phase 7's checks and times at its training shape,
+   the fused forward (bf16 map → bf16 CHW codes), kernel A and kernel B
+   (bf16 CHW gradient (4, 256, 25,088)) on the trunk's own map of a
+   training batch and one draw of the sampler at init (repeated
+   negatives, forced positives partly outside the image, anchors up to
+   724 px), each against its plain version, with events hot and cold,
+   CUPTI, the plain version and the library (affine_grid+grid_sample, or
+   autograd's backward through it), and the byte bound;
+13. RPN training as in 8 (bf16 over fp32 masters, 4 × 720² images × 32
+   GT regions, 256 sampled regions each): ms a step, images/s and sampled
+   regions/s, the last step's loss dict with `pos_occupancy`, one
+   profiled step (busy, idle share, kernels and copies by kind), peak
+   memory, the checkpoint round trip; the fused forward, kernel A and
+   kernel B each launched once a step;
+14. one fp32 RPN train step on the card against the CPU as in 9, its
+   `rpn_trans` and `box_reg` moved off their zero init and the sampler
+   given the same keys on both, held as in 9 (`rpn_trans`'s gradient,
+   which kernel B's d_boxes reaches through the sampled boxes, reported
+   by name);
+15. RPN serving at full width: `forward_test` (clip, NMS 0.7 to 300
+   proposals, ROI, objectness and refined boxes, NMS 0.3) and greedy
+   captions of 17 steps for every slot, on 4 × 720² uint8 images:
+   images/s and regions/s from events, the NMS loops' share of a call,
+   the card's NMS against the CPU's on the same boxes and scores
+   (identical indices and keep), one profiled call (busy, idle share,
+   kernels); then the fp32 model on the card against the CPU on a small
+   input, its box heads moved off zero as in 14 (so the boxes are not the
+   anchors): keep identical, boxes and scores within 1e-4 relative,
+   tokens identical where both keep.
+Every line of phases 4–15 carries the card's name and power limit. The
 kernels line counts each kernel's launches over every path that runs it
-(`launches`, split in `launches_by_path`): the fused forward in both
-heads' serving and training, kernel A in both heads' training.
+(`launches`, split in `launches_by_path`): the fused forward in both GT
+heads' serving and training and in RPN training (`rpn_training`, one a
+step) and serving (`rpn_serving`, one a call); kernel A in both GT heads'
+training and in RPN training; kernel B in RPN training, its only main
+path (its numbers there are the RPN shape's; K1's and A's `rpn_shape`).
 The last three lines: the card as nvidia-smi reports it, one JSON line of
 per-kernel numbers, and {"ok": true, "device": ...}. The profiler's full
 tables go to <out-dir>/chip_smoke_profile.txt and
 <out-dir>/chip_smoke_train_profile.txt, and the transformer's to
 <out-dir>/chip_smoke_transformer_profile.txt and
-<out-dir>/chip_smoke_transformer_train_profile.txt (`--out-dir`, default
-build/chip_smoke), where the checkpoints of phases 8 and 11 are written
-and removed.
+<out-dir>/chip_smoke_transformer_train_profile.txt, the RPN's to
+<out-dir>/chip_smoke_rpn_train_profile.txt and
+<out-dir>/chip_smoke_rpn_serving_profile.txt (`--out-dir`, default
+build/chip_smoke), where the checkpoints of phases 8, 11 and 13 are
+written and removed.
 """
 
 from __future__ import annotations
@@ -119,16 +160,23 @@ FLUSH_BYTES = 128 << 20       # > the H100's 50 MB L2
 HEAD_START_CYCLES = 400_000   # ~0.2 ms at the H100's 1.98 GHz boost clock
 ROI_WRAPPERS = ("roi_align_batch_chw", "roi_align_batch", "roi_align",
                 "roi_align_bwd_features", "roi_align_bwd_boxes")
-GRAD_REL_TOL = 1e-4           # d_boxes, relative to the largest component
+# d_boxes, relative to the largest component; a train step's gradients
+# (`train_step_check`), in all but GRAD_SHARE_TOL of each tensor's elements
+GRAD_REL_TOL = 1e-4
+GRAD_SHARE_TOL = 0.01
 TRAIN_IMAGES, TRAIN_SPLIT, TRAIN_IMAGE = 10, 8, 720
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_WINDOWS = 4, 2, 12, 3
 LOSS_REL_TOL = 1e-4
+# RPN serving: images a call, proposals kept an image (the DenseCap
+# config's 1000 capped at 300, as build_rpn_model does), timed calls
+RPN_IMAGES, RPN_PROPOSALS, RPN_SERVE_CALLS = 4, 300, 3
 # kinds of the card's work in a profiled training step, by kernel name
 # (the first match wins; the rest is elementwise work and reductions)
 KERNEL_KINDS = (("convolution (cuDNN)", ("fprop", "dgrad", "wgrad")),
                 ("matrix product (cuBLAS)", ("gemm",)),
                 ("optimizer (foreach)", ("multi_tensor_apply",)),
                 ("ROI kernels", ("roi_",)),
+                ("sort (RPN sampler)", ("Sort", "sort")),
                 ("max-pool", ("max_pool",)),
                 ("host-to-card copy", ("Memcpy HtoD",)))
 
@@ -712,13 +760,40 @@ def same_state(a, b) -> bool:
     return a == b
 
 
-def train(dev, roi, out_dir: Path, use_lstm=True, label="training", card="",
-          table="chip_smoke_train_profile.txt"):
-    """Full-width training (phase 8; phase 11 with `use_lstm` False) → its
-    numbers (raises on a failed check)."""
-    from torch.profiler import ProfilerActivity, profile as prof
+def train_setup(dev, kind):
+    """(config, build(device) → model, step(model, optimizer, generator)
+    → a call of (batch on the device, keys) returning the loss dict, the
+    trunk's name) for the GT heads (`kind` "lstm" or "transformer") or the
+    RPN model ("rpn")."""
+    from imagecaptioning_tpu_torch.config.dense_configs import (
+        DenseConfig, get_densecap_config)
+    from imagecaptioning_tpu_torch.train import dense_driver as dd
 
-    from imagecaptioning_tpu_torch.config.dense_configs import DenseConfig
+    if kind == "rpn":
+        cfg = get_densecap_config().replace(batch_size=TRAIN_BATCH,
+                                            max_regions=N_REGIONS)
+
+        def make_step(model, opt, gen):
+            step = dd.make_rpn_train_step(model, opt, gen)
+            return lambda images, boxes, labels, mask, keys=None: step(
+                images, boxes, mask, labels, keys)
+        return cfg, dd.build_rpn_model, make_step, "conv_trunk"
+    cfg = DenseConfig(use_lstm=kind == "lstm", batch_size=TRAIN_BATCH,
+                      max_regions=N_REGIONS)
+
+    def make_step(model, opt, gen):
+        step = dd.make_gt_train_step(model, opt, cfg.use_curriculum_learning,
+                                     gen)
+        return lambda images, boxes, labels, mask, keys=None: {
+            "total": step(images, boxes, labels, mask, 1.0)}
+    return cfg, dd.build_gt_model, make_step, "features"
+
+
+def train(dev, roi, out_dir: Path, kind="lstm", label="training", card="",
+          table="chip_smoke_train_profile.txt"):
+    """Full-width training (phase 8; 11 with the transformer head, 13 with
+    the RPN model) → its numbers (raises on a failed check)."""
+    from torch.profiler import ProfilerActivity, profile as prof
     from imagecaptioning_tpu_torch.data.vg_loader import VGDataLoader
     from imagecaptioning_tpu_torch.train import dense_driver as dd
     from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
@@ -726,20 +801,18 @@ def train(dev, roi, out_dir: Path, use_lstm=True, label="training", card="",
 
     arrays, info = make_train_data(np.random.RandomState(SEED + 2))
     loader = VGDataLoader(arrays=arrays, info=info)
-    cfg = DenseConfig(use_lstm=use_lstm, batch_size=TRAIN_BATCH,
-                      max_regions=N_REGIONS)
-    # as train_gt: the train split's image count, read as an update count
+    cfg, build_model, make_step, trunk = train_setup(dev, kind)
+    # as the drivers: the train split's image count, read as an update count
     finetune_start = len(loader.train_ix)
 
     def build():
-        model = dd.build_gt_model(cfg, VOCAB, SEQ, dev)
+        model = build_model(cfg, VOCAB, SEQ, dev)
         return model, dd.make_dense_optimizer(cfg, model, finetune_start)
     model, opt = build()
     seeded_init_(model, SEED)
     gen = torch.Generator(dev)
     gen.manual_seed(SEED + 1)
-    step = dd.make_gt_train_step(model, opt, cfg.use_curriculum_learning,
-                                 gen)
+    step = make_step(model, opt, gen)
 
     def batches():
         while True:
@@ -749,8 +822,8 @@ def train(dev, roi, out_dir: Path, use_lstm=True, label="training", card="",
 
     def run(k):
         for _ in range(k):
-            losses.append(step(*dd.to_device(next(feed), dev), 1.0))
-    encoder = model.features[dd.FROZEN_FEATURES].weight   # conv3_1
+            losses.append(step(*dd.to_device(next(feed), dev)))
+    encoder = getattr(model, trunk)[dd.FROZEN_FEATURES].weight   # conv3_1
     encoder0 = encoder.detach().clone()
     run(TRAIN_WARMUP)
     torch.cuda.synchronize()
@@ -775,13 +848,15 @@ def train(dev, roi, out_dir: Path, use_lstm=True, label="training", card="",
     step_ms = float(np.median(window_ms))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     encoder_moved_after = not torch.equal(encoder, encoder0)
-    loss_values = [float(v) for v in losses]
+    loss_values = [float(d["total"]) for d in losses]
     if not all(np.isfinite(loss_values)):
         raise AssertionError(f"non-finite training loss: {loss_values}")
     steps = TRAIN_WINDOWS * TRAIN_STEPS
-    if launches["roi_align_bwd_features"] != steps or launches[
-            "roi_align_batch_chw"] != steps or launches[
-            "roi_align_bwd_boxes"] != 0:
+    # one fused forward and one kernel A a step; kernel B only where the
+    # boxes are differentiated, the RPN's sampled proposals
+    want = {"roi_align_batch_chw": steps, "roi_align_bwd_features": steps,
+            "roi_align_bwd_boxes": steps if kind == "rpn" else 0}
+    if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"ROI launches in {steps} steps: {launches}")
     if not (encoder_still_before and encoder_moved_after):
         raise AssertionError(
@@ -804,12 +879,14 @@ def train(dev, roi, out_dir: Path, use_lstm=True, label="training", card="",
                       and e.key != "Activity Buffer Request"),
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    by_kind = {}
+    by_kind, count_by_kind = {}, {}
     for e in kernels:
-        kind = next((k for k, words in KERNEL_KINDS
-                     if any(w in e.key for w in words)),
-                    "elementwise, reductions, other")
-        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
+        kind_of = next((k for k, words in KERNEL_KINDS
+                        if any(w in e.key for w in words)),
+                       "elementwise, reductions, other")
+        by_kind[kind_of] = (by_kind.get(kind_of, 0.0)
+                            + e.self_device_time_total / 1e3)
+        count_by_kind[kind_of] = count_by_kind.get(kind_of, 0) + e.count
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / table).write_text(events.table(
         sort_by="self_device_time_total", row_limit=40))
@@ -820,13 +897,13 @@ def train(dev, roi, out_dir: Path, use_lstm=True, label="training", card="",
     cursor = done % (TRAIN_SPLIT // TRAIN_BATCH) * TRAIN_BATCH
     path = out_dir / "chip_smoke_train.ckpt"
     t1 = time.perf_counter()
-    ckptlib.save_checkpoint(str(path), dd.gt_train_state(
+    ckptlib.save_checkpoint(str(path), ckptlib.train_state(
         model, opt, done, gen, cursor))
     save_s = time.perf_counter() - t1
     ckpt_gb = path.stat().st_size / 1e9
     model2, opt2 = build()
     gen2 = torch.Generator(dev)
-    restored = dd.load_gt_train_state(
+    restored = ckptlib.load_train_state(
         ckptlib.restore_checkpoint(str(path), torch.device("cpu")),
         model2, opt2, gen2)
     path.unlink()
@@ -839,14 +916,18 @@ def train(dev, roi, out_dir: Path, use_lstm=True, label="training", card="",
                              "saved state")
     del model2, opt2
 
+    regions = TRAIN_BATCH * (cfg.sampler_batch_size if kind == "rpn"
+                             else N_REGIONS)
     res = {
         "card": card,
         "images": f"{TRAIN_BATCH} x {TRAIN_IMAGE}^2 uint8, {N_REGIONS} "
-                  f"regions each, vocab {VOCAB}, seq {SEQ}",
+                  f"{'GT ' if kind == 'rpn' else ''}regions each, vocab "
+                  f"{VOCAB}, seq {SEQ}",
+        "regions_per_step": regions,
         "steps_timed": steps, "window_step_ms": window_ms,
         "step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
         "images_per_s": TRAIN_BATCH / step_ms * 1e3,
-        "regions_per_s": TRAIN_BATCH * N_REGIONS / step_ms * 1e3,
+        "regions_per_s": regions / step_ms * 1e3,
         "timed_wall_s": wall_s, "peak_mem_gb": peak_gb,
         "loss_per_step": loss_values, "launches": launches,
         "encoder_lr_boundary_update": finetune_start,
@@ -858,26 +939,46 @@ def train(dev, roi, out_dir: Path, use_lstm=True, label="training", card="",
             # against an unprofiled step's time
             "device_idle_share_of_timed_step": 1 - busy_ms / step_ms,
             "device_ms_by_kind": by_kind,
+            "kernels_and_copies_by_kind": count_by_kind,
             "kernels_and_copies": sum(e.count for e in kernels),
             "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
                                for e in kernels[:10]}},
         "checkpoint": {"gb": ckpt_gb, "save_s": save_s,
                        "round_trip_bitwise": round_trip},
     }
+    if kind == "rpn":
+        res["last_step_losses"] = {k: float(v)
+                                   for k, v in losses[-1].items()}
     print(f"{label}: {json.dumps(res)}", flush=True)
     return res
 
 
-def train_step_check(dev, use_lstm=True, label="train step (fp32 card vs "
-                     "CPU, full width)", card=""):
-    """One fp32 train step at full width on the card vs the CPU from the
-    same weights, small input, dropout off on both (phase 9; phase 11 with
-    `use_lstm` False)."""
-    from imagecaptioning_tpu_torch.config.dense_configs import DenseConfig
+def move_box_heads_(model, seed):
+    """Move the RPN's zero-initialised `rpn_trans` and `box_reg` weights
+    off zero (normal, std 0.05 and 0.01, as the CPU parity tests do), so
+    that the proposals and the refined boxes differ from the anchors and
+    the card runs `apply_box_transform` on non-zero deltas. Returns
+    `model`."""
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for layer, scale in ((model.rpn_trans, 0.05), (model.box_reg, 0.01)):
+            layer.weight.copy_(torch.from_numpy(
+                (rng.randn(*layer.weight.shape) * scale).astype(np.float32)))
+    return model
+
+
+def step_grads(dev, kind, dtype="float32", state=None):
+    """One train step of `kind` (`train_setup`) at full width on `dev` in
+    `dtype`, from phase 9's small input with dropout off; the RPN's sampler
+    takes fixed keys. The weights are seed 0's, the RPN's box heads moved
+    off zero, or `state`. → (the weights before the step as a CPU state
+    dict, the model after it, its loss dict, {name: the gradient before
+    the update, on the CPU})."""
     from imagecaptioning_tpu_torch.train import dense_driver as dd
     from imagecaptioning_tpu_torch.utils.weights import seeded_init_
 
-    cfg = DenseConfig(use_lstm=use_lstm, compute_dtype="float32")
+    cfg, build_model, make_step, _ = train_setup(dev, kind)
+    cfg = cfg.replace(compute_dtype=dtype, param_dtype=dtype)
     rng = np.random.RandomState(SEED + 3)
     images = torch.from_numpy(rng.randint(0, 256, (2, 96, 96, 3),
                                           dtype=np.uint8))
@@ -886,40 +987,372 @@ def train_step_check(dev, use_lstm=True, label="train step (fp32 card vs "
     labels[:, :, 9:] = 0
     mask = torch.ones(2, 8)
     mask[1, 7] = 0.0
-    twins = [dd.build_gt_model(cfg, VOCAB, SEQ, d)
-             for d in (torch.device("cpu"), dev)]
-    twins[1].load_state_dict(seeded_init_(twins[0], SEED).state_dict())
-    losses = []
-    for model in twins:
-        d = next(model.parameters()).device
-        model.classifier[2].p = 0.0     # the two generators draw apart
-        # the encoder trains from the first update, so every group moves
-        opt = dd.make_dense_optimizer(cfg, model, 0)
-        step = dd.make_gt_train_step(model, opt, False,
-                                     torch.Generator(d).manual_seed(SEED))
-        losses.append(float(step(images.to(d), boxes.to(d), labels.to(d),
-                                 mask.to(d), 1.0)))
-    loss_rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    # 96² at stride 16 (the RPN's trunk): 6 × 6 positions, 12 anchors each
+    keys = torch.from_numpy(rng.rand(2, 2, 6 * 6 * 12).astype(np.float32))
+    model = build_model(cfg, VOCAB, SEQ, dev)
+    if state is None:
+        seeded_init_(model, SEED)
+        if kind == "rpn":
+            move_box_heads_(model, SEED + 9)
+        state = {k: v.detach().cpu().clone()
+                 for k, v in model.state_dict().items()}
+    else:
+        model.load_state_dict(state)
+    # two devices' generators draw apart: no dropout
+    (model.recog_base if kind == "rpn" else model.classifier)[2].p = 0.0
+    # the encoder trains from the first update, so every group moves
+    opt = dd.make_dense_optimizer(cfg, model, 0)
+    grads = {}
+    opt.register_step_pre_hook(lambda *_: grads.update(
+        {n: p.grad.detach().cpu().clone()
+         for n, p in model.named_parameters() if p.grad is not None}))
+    step = make_step(model, opt, torch.Generator(dev).manual_seed(SEED))
+    out = step(images.to(dev), boxes.to(dev), labels.to(dev), mask.to(dev),
+               tuple(keys.to(dev)) if kind == "rpn" else None)
+    return state, model, {k: float(v) for k, v in out.items()}, grads
+
+
+def grad_agreement(got, want):
+    """{name: [max relative error, share of elements over GRAD_REL_TOL]}
+    of the gradients `got` against `want`, relative as the CPU parity
+    tests hold them: |got - want| / (|want| + max |want| of the tensor)."""
+    out = {}
+    for name, w in want.items():
+        w = w.double()
+        rel = ((got[name].double() - w).abs()
+               / (w.abs() + w.abs().max()).clamp_min(1e-30))
+        out[name] = [float(rel.max()),
+                     float((rel > GRAD_REL_TOL).double().mean())]
+    return out
+
+
+def train_step_check(dev, kind="lstm", label="train step (fp32 card vs "
+                     "CPU, full width)", card=""):
+    """One fp32 train step at full width on the card vs the CPU from the
+    same weights, small input, dropout off on both (phase 9; 11 with the
+    transformer head; 14 with the RPN model, its box heads moved off zero
+    and its sampler given the same keys on both): each loss within
+    LOSS_REL_TOL relative; each parameter's gradient, taken before the
+    update, within GRAD_REL_TOL of the CPU's (as the CPU parity tests hold
+    it against JAX: |card - cpu| ≤ tol · (|cpu| + max |cpu| of the
+    tensor)) in all but GRAD_SHARE_TOL of each tensor's elements; every
+    weight after the update within 2·lr, at most 1e-5 of them more than
+    1e-7 apart. A first Adam update moves a weight by lr·g/(|g| + eps),
+    less than lr whatever g is, so the weights alone cannot show a wrong
+    gradient. The share allows for ReLUs whose input lies within rounding
+    of zero: where the card and the CPU disagree on its sign, one unit's
+    gradient (a channel's bias and weights) differs by up to ~1e-2."""
+    cfg = train_setup(dev, kind)[0]
+    state, cpu_model, cpu_losses, cpu_grads = step_grads(
+        torch.device("cpu"), kind)
+    _, card_model, card_losses, card_grads = step_grads(dev, kind,
+                                                        state=state)
+    loss_rel = max(abs(card_losses[k] - v) / max(abs(v), 1e-30)
+                   for k, v in cpu_losses.items() if v != 0.0)
+    zero_ok = all(card_losses[k] == 0.0 for k, v in cpu_losses.items()
+                  if v == 0.0)
+    agree = grad_agreement(card_grads, cpu_grads)
+    grad_err = {n: e for n, (e, _) in agree.items()}
+    grad_off = {n: o for n, (_, o) in agree.items()}
+    grads_ok = (bool(agree) and sorted(card_grads) == sorted(agree)
+                and max(grad_off.values()) <= GRAD_SHARE_TOL)
     worst, worst_name, off, total = 0.0, "", 0, 0
-    cpu_params = dict(twins[0].named_parameters())
-    for name, p in twins[1].named_parameters():
+    cpu_params = dict(cpu_model.named_parameters())
+    for name, p in card_model.named_parameters():
         d = (p.detach().cpu() - cpu_params[name].detach()).abs()
         if float(d.max()) > worst:
             worst, worst_name = float(d.max()), name
         off += int((d > 1e-7).sum())
         total += d.numel()
-    res = {"card": card, "loss_cpu": losses[0], "loss_card": losses[1],
-           "loss_rel_err": loss_rel, "param_max_abs_diff": worst,
-           "param_max_abs_diff_at": worst_name,
+    top = sorted(grad_err, key=lambda n: -grad_off[n] - grad_err[n])[:6]
+    res = {"card": card, "loss_cpu": cpu_losses["total"],
+           "loss_card": card_losses["total"], "loss_rel_err": loss_rel,
+           "grads_compared": len(grad_err),
+           "grad_share_over_tol_max": max(grad_off.values(), default=None),
+           "grad_rel_err_max": max(grad_err.values(), default=None),
+           "grad_worst_by_tensor": {n: agree[n] for n in top},
+           "param_max_abs_diff": worst, "param_max_abs_diff_at": worst_name,
            "params_over_1e-7_share": off / total,
-           "tolerance": f"loss {LOSS_REL_TOL} relative; params within "
-                        f"2 lr = {2 * cfg.learning_rate}, at most 1e-5 of "
-                        f"them more than 1e-7 apart"}
+           "tolerance": f"each loss {LOSS_REL_TOL} relative; each gradient "
+                        f"{GRAD_REL_TOL} relative in all but {GRAD_SHARE_TOL}"
+                        f" of each tensor's elements; params within 2 lr = "
+                        f"{2 * cfg.learning_rate}, at most 1e-5 of them more "
+                        f"than 1e-7 apart"}
+    if kind == "rpn":
+        # [max relative error, share over GRAD_REL_TOL]
+        res["grad_rpn_trans"] = {n: e for n, e in agree.items()
+                                 if n.startswith("rpn_trans.")}
+        res["losses_cpu"], res["losses_card"] = cpu_losses, card_losses
     print(f"{label}: {json.dumps(res)}", flush=True)
-    if not (loss_rel <= LOSS_REL_TOL and worst <= 2 * cfg.learning_rate
-            + 1e-7 and off / total <= 1e-5):
+    if not (loss_rel <= LOSS_REL_TOL and zero_ok and grads_ok
+            and worst <= 2 * cfg.learning_rate + 1e-7 and off / total <= 1e-5):
         raise AssertionError(f"card train step differs from the CPU's: "
                              f"{res}")
+    return res
+
+
+def sampled_rpn_boxes(dev, model, normalize_images):
+    """The RPN's own regions at init: one training batch of make_train_data
+    (4 × 720², 32 GT regions each) through the trunk and the RPN head, then
+    one draw of the sampler (128 positives, forced ones partly outside the
+    image, then 128 negatives, repeated where short) → (the trunk's bf16
+    map (4, 45, 45, 512), the sampled boxes (4, 256, 4), the sample)."""
+    from imagecaptioning_tpu_torch.data.vg_loader import VGDataLoader
+
+    arrays, info = make_train_data(np.random.RandomState(SEED + 2))
+    batch = next(VGDataLoader(arrays=arrays, info=info).padded_batches(
+        0, TRAIN_BATCH, N_REGIONS))
+    images = torch.from_numpy(batch["image"]).to(dev)
+    gt = torch.from_numpy(batch["boxes"]).to(dev)
+    gt_mask = torch.from_numpy(batch["box_mask"]).to(dev)
+    gen = torch.Generator(dev)
+    gen.manual_seed(SEED + 5)
+    hw = (float(TRAIN_IMAGE), float(TRAIN_IMAGE))
+    with torch.no_grad():
+        feats = model.conv_trunk(normalize_images(images,
+                                                  model.compute_dtype))
+        rpn = model.rpn_forward(feats)
+        keys = model.draw_keys(TRAIN_BATCH, rpn.scores.shape[1], gen, dev)
+        s = model.sample_regions(rpn, gt, gt_mask, keys, hw)
+        idx = torch.cat([s.pos_idx, s.neg_idx], 1)
+        boxes = rpn.proposals.gather(1, idx[..., None].expand(-1, -1, 4))
+    return feats.contiguous(), boxes.contiguous(), s
+
+
+def check_rpn_roi(dev, roi, feats, boxes, sample, iters, flush, card=""):
+    """Phase 7's checks and times at the RPN training shape: the fused
+    forward (bf16 map → bf16 CHW codes), kernel A and kernel B (bf16 CHW
+    gradient) on the RPN's own map and sampled boxes, each against its
+    plain version, with event times hot and cold, CUPTI times, the plain
+    version's and the library's → {entry: numbers} (raises if one
+    disagrees or two launches differ)."""
+    n, r = boxes.shape[:2]
+    hw = (float(TRAIN_IMAGE), float(TRAIN_IMAGE))
+    bf16 = torch.bfloat16
+    rng = np.random.RandomState(SEED + 6)
+    g = torch.from_numpy(rng.randn(n, r, 7, 7, feats.shape[-1])
+                         .astype(np.float32)).to(dev)
+    grad = g.permute(0, 1, 4, 2, 3).reshape(n, r, -1).contiguous().to(bf16)
+    fwd_lib, _ = grid_sample_roi(feats.float(), boxes, hw, (7, 7))
+    bwd_lib = grid_sample_roi_backward(feats, boxes, hw, (7, 7), g)
+    corners = torch.cat([boxes[..., :2] - (boxes[..., 2:] - 1) / 2,
+                         boxes[..., :2] + (boxes[..., 2:] - 1) / 2], -1)
+    outside = ((corners[..., :2] < 1)
+               | (corners[..., 2:] > TRAIN_IMAGE)).any(-1)
+    distinct = [len(set(map(tuple, b.tolist()))) for b in boxes.cpu()]
+    boxes_desc = {
+        "positives_valid": int(sample.pos_mask.sum()),
+        "negatives_valid": int(sample.neg_mask.sum()),
+        "distinct_boxes_per_image": distinct,
+        "partly_outside_image": int(outside.sum()),
+        "max_side_px": float(boxes[..., 2:].max()),
+    }
+    cases = {
+        "roi_align_batch_chw": (
+            lambda: roi.roi_align_batch_chw(feats, boxes, hw, out_dtype=bf16),
+            lambda: roi.roi_align_batch_chw_reference(feats, boxes, hw,
+                                                      out_dtype=bf16),
+            compare, (feats, boxes), None, fwd_lib),
+        "roi_align_bwd_features": (
+            lambda: roi.roi_align_bwd_features(feats, boxes, grad, hw),
+            lambda: roi.roi_align_backward_reference(
+                feats, boxes, grad, hw, need_boxes=False)[0],
+            compare, (grad, boxes), 8 * grad.numel(), bwd_lib),
+        "roi_align_bwd_boxes": (
+            lambda: roi.roi_align_bwd_boxes(feats, boxes, grad, hw),
+            lambda: roi.roi_align_backward_reference(
+                feats, boxes, grad, hw, need_features=False)[1],
+            compare_boxes, (feats, boxes, grad), 14 * grad.numel(), bwd_lib),
+    }
+    shape = (f"N={n} R={r} (RPN sample) {feats.shape[1]}x{feats.shape[2]}x"
+             f"{feats.shape[3]} bf16 image {TRAIN_IMAGE} -> 7x7, bf16 CHW")
+    out = {}
+    for name, (kernel, plain, check, reads, flops, lib) in cases.items():
+        got = kernel()
+        again = kernel()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} at the RPN shape: two launches "
+                                 f"differ")
+        res = {"card": card, "shape": shape, "boxes": boxes_desc,
+               **check(got, plain()), "deterministic": True,
+               **roofline(reads, got, flops), **timings(kernel, iters, flush),
+               **cupti_times(kernel, iters, flush),
+               "plain_ms": cuda_ms(plain, iters // 4),
+               "library_ms": device_ms(lib, iters // 4, flush),
+               "library_ms_hot": device_ms(lib, iters // 4),
+               "library": ("affine_grid+grid_sample (fp32 map)"
+                           if name == "roi_align_batch_chw" else
+                           "autograd backward of affine_grid+grid_sample "
+                           "(both gradients, fp32 map)")}
+        res["cold_share_of_bound"] = res["bound_ms"] / res["ms_cold"]
+        print(f"roi at the RPN shape, {name}: {json.dumps(res)}", flush=True)
+        out[name] = res
+    return out
+
+
+def nms_parity(nms, boxes, scores, thresh, valid):
+    """The card's NMS and the CPU's on the same boxes and scores → whether
+    their indices and keep masks are identical."""
+    on_card = nms(boxes, scores, thresh, RPN_PROPOSALS, valid=valid)
+    on_cpu = nms(boxes.cpu(), scores.cpu(), thresh, RPN_PROPOSALS,
+                 valid=valid.cpu())
+    return all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu))
+
+
+def serve_rpn(dev, build, normalize_images, roi, out_dir, card=""):
+    """RPN serving at full width (phase 15): `forward_test` (clip, NMS 0.7
+    to RPN_PROPOSALS, ROI, objectness and refinement, NMS 0.3) and greedy
+    captions of SEQ + 1 steps for every proposal slot, on RPN_IMAGES
+    uint8 720² images, bf16 trunk and classifier, fp32 heads: images/s and
+    regions/s from events over RPN_SERVE_CALLS calls after a warm-up, the
+    fused ROI entry's launches (one a call), the NMS loops' share of a
+    call (both loops timed alone on the call's own inputs), the card's
+    NMS against the CPU's on those inputs (identical indices and keep),
+    and one profiled call (busy time, idle share, kernels)."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    from imagecaptioning_tpu_torch.ops import boxes as boxlib
+    from imagecaptioning_tpu_torch.ops.nms import nms
+    from imagecaptioning_tpu_torch.utils.weights import seeded_init_
+
+    model = seeded_init_(build(dev, torch.bfloat16), SEED)
+    rng = np.random.RandomState(SEED + 7)
+    images_u8 = torch.from_numpy(rng.randint(
+        0, 256, (RPN_IMAGES, TRAIN_IMAGE, TRAIN_IMAGE, 3),
+        dtype=np.uint8)).to(dev)
+    outs = {}
+
+    @torch.inference_mode()
+    def run():
+        x = normalize_images(images_u8, torch.bfloat16)
+        boxes, scores, codes, keep = model.forward_test(x)
+        outs["call"] = (boxes, scores, keep,
+                        model.generate_captions(codes, SEQ + 1))
+    run()                                       # warm-up
+    torch.cuda.synchronize()
+    for name in ROI_WRAPPERS:
+        getattr(roi, name).launches = 0
+    call_ms = cuda_ms(run, iters=RPN_SERVE_CALLS, warmup=0)
+    launches = {name: getattr(roi, name).launches for name in ROI_WRAPPERS}
+    if launches["roi_align_batch_chw"] != RPN_SERVE_CALLS:
+        raise AssertionError(f"RPN serving ROI launches in "
+                             f"{RPN_SERVE_CALLS} calls: {launches}")
+    boxes, scores, keep, toks = outs["call"]
+    slots = RPN_IMAGES * RPN_PROPOSALS
+    if (boxes.shape != (RPN_IMAGES, RPN_PROPOSALS, 4)
+            or toks.shape != (slots, SEQ + 1)):
+        raise AssertionError(f"RPN serving shapes {tuple(boxes.shape)}, "
+                             f"{tuple(toks.shape)}")
+    if not (torch.isfinite(boxes[keep]).all()
+            and torch.isfinite(scores[keep]).all() and keep.any()):
+        raise AssertionError("RPN serving: non-finite kept boxes or scores, "
+                             "or nothing kept")
+    if int(toks.min()) < 0 or int(toks.max()) >= VOCAB + 3:
+        raise AssertionError("RPN serving: token ids out of range")
+
+    # the two NMS loops alone, on one call's own inputs
+    hw = (float(TRAIN_IMAGE), float(TRAIN_IMAGE))
+    with torch.inference_mode():
+        feats = model.conv_trunk(normalize_images(images_u8, torch.bfloat16))
+        rpn = model.rpn_forward(feats)
+        clipped, valid = boxlib.clip_boxes(rpn.proposals, *hw)
+        idx, first_keep = nms(clipped, rpn.scores, 0.7, RPN_PROPOSALS,
+                              valid=valid)
+        kept = clipped.gather(1, idx[..., None].expand(-1, -1, 4))
+        codes = model.region_codes(feats, kept, hw)
+        obj = model.objectness(codes.float())[..., 0]
+        refined = boxlib.apply_box_transform(
+            kept, model.box_reg(codes.float()),
+            max_log_scale=model.box_transform_clamp)
+        first_ms = cuda_ms(lambda: nms(clipped, rpn.scores, 0.7,
+                                       RPN_PROPOSALS, valid=valid), 3, 1)
+        final_ms = cuda_ms(lambda: nms(refined, obj, 0.3, RPN_PROPOSALS,
+                                       valid=first_keep), 3, 1)
+        same_nms = (nms_parity(nms, clipped, rpn.scores, 0.7, valid)
+                    and nms_parity(nms, refined, obj, 0.3, first_keep))
+    if not same_nms:
+        raise AssertionError("the card's NMS and the CPU's differ on the "
+                             "same boxes and scores")
+
+    with prof(activities=[ProfilerActivity.CPU,
+                          ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    events = p.key_averages()
+    kernels = sorted((e for e in events
+                      if str(e.device_type).endswith("CUDA")
+                      and not e.is_user_annotation
+                      and e.key != "Activity Buffer Request"),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "chip_smoke_rpn_serving_profile.txt").write_text(events.table(
+        sort_by="self_device_time_total", row_limit=40))
+    res = {
+        "card": card,
+        "images": f"{RPN_IMAGES} x {TRAIN_IMAGE}^2 uint8, "
+                  f"{rpn.scores.shape[1]} anchors each, {RPN_PROPOSALS} "
+                  f"proposals, greedy {SEQ + 1} steps, vocab {VOCAB}",
+        "call_ms": call_ms, "images_per_s": RPN_IMAGES / call_ms * 1e3,
+        "captioned_regions_per_s": slots / call_ms * 1e3,
+        "kept_regions_per_call": int(keep.sum()),
+        "kept_regions_per_s": int(keep.sum()) / call_ms * 1e3,
+        "nms_ms": {"first_0.7": first_ms, "final_0.3": final_ms},
+        "nms_share_of_call": (first_ms + final_ms) / call_ms,
+        "nms_card_equals_cpu": same_nms, "launches": launches,
+        "profiled_call": {
+            "wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share_of_timed_call": 1 - busy_ms / call_ms,
+            "kernels_and_copies": sum(e.count for e in kernels),
+            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                               for e in kernels[:10]}},
+    }
+    print(f"RPN serving: {json.dumps(res)}", flush=True)
+    return res
+
+
+def rpn_reference_check(dev, build, card=""):
+    """The full-width RPN model in fp32 on the card against the CPU on a
+    small input (phase 15), its box heads moved off zero so that the
+    proposals and refined boxes are not the anchors: `forward_test` keep
+    masks identical, boxes and scores within LOGIT_TOL relative to their
+    largest magnitude, and the greedy tokens identical for every region
+    kept on both."""
+    from imagecaptioning_tpu_torch.utils.weights import seeded_init_
+
+    twins = [build(d, torch.float32) for d in (torch.device("cpu"), dev)]
+    seeded_init_(twins[0], SEED)
+    twins[1].load_state_dict(move_box_heads_(twins[0], SEED + 9).state_dict())
+    rng = np.random.RandomState(SEED + 8)
+    x = torch.from_numpy(rng.randn(2, 128, 128, 3).astype(np.float32))
+    outs = []
+    with torch.inference_mode():
+        rpn = twins[0].proposals_only(x)
+        shift = float((rpn.proposals - rpn.anchors).abs().mean())
+        for model in twins:
+            d = next(model.parameters()).device
+            boxes, scores, codes, keep = model.forward_test(x.to(d))
+            toks = model.generate_captions(codes, SEQ + 1)
+            outs.append([t.cpu() for t in (boxes, scores, keep, toks)])
+    (bc, sc, kc, tc), (bg, sg, kg, tg) = outs
+    both = (kc & kg).reshape(-1)
+    box_err = float((bg - bc)[kc & kg].abs().max()) / float(bc.abs().max())
+    score_err = float((sg - sc)[kc & kg].abs().max()) / float(sc.abs().max())
+    res = {"card": card, "keep_identical": bool(torch.equal(kc, kg)),
+           "kept": int(kc.sum()), "box_rel_err": box_err,
+           "proposal_mean_abs_shift_from_anchors_px": shift,
+           "score_rel_err": score_err,
+           "kept_token_agreement": float((tc[both] == tg[both]).float()
+                                         .mean()),
+           "tolerance": f"{LOGIT_TOL} relative to the largest magnitude"}
+    print(f"RPN reference check (fp32 card vs CPU, full width): "
+          f"{json.dumps(res)}", flush=True)
+    if not (res["keep_identical"] and box_err <= LOGIT_TOL
+            and score_err <= LOGIT_TOL
+            and res["kept_token_agreement"] == 1.0):
+        raise AssertionError(f"RPN card outputs differ from the CPU's: {res}")
     return res
 
 
@@ -1022,27 +1455,60 @@ def main() -> int:
     trained = train(dev, roi, args.out_dir, card=smi)
     step_check = train_step_check(dev, card=smi)
     # phase 11: the transformer head's training
-    t_trained = train(dev, roi, args.out_dir, use_lstm=False,
+    t_trained = train(dev, roi, args.out_dir, kind="transformer",
                       label="transformer training", card=smi,
                       table="chip_smoke_transformer_train_profile.txt")
     t_step_check = train_step_check(
-        dev, use_lstm=False, card=smi,
+        dev, kind="transformer", card=smi,
         label="transformer train step (fp32 card vs CPU, full width)")
+
+    # phases 12-15: the RPN model (get_densecap_config: 128 + 128 sampled
+    # boxes, 300 test proposals)
+    from imagecaptioning_tpu_torch.config.dense_configs import \
+        get_densecap_config
+    from imagecaptioning_tpu_torch.train import dense_driver as dd
+    rpn_cfg = get_densecap_config()
+
+    def build_rpn(d, dtype):
+        """The serving model: weights stored in the compute dtype."""
+        name = {torch.bfloat16: "bfloat16", torch.float32: "float32"}[dtype]
+        cfg = rpn_cfg.replace(compute_dtype=name, param_dtype=name)
+        return dd.build_rpn_model(cfg, VOCAB, SEQ, d).eval()
+    rpn_model = weights.seeded_init_(dd.build_rpn_model(rpn_cfg, VOCAB, SEQ,
+                                                        dev), SEED)
+    rpn_feats, rpn_boxes, rpn_sample = sampled_rpn_boxes(dev, rpn_model,
+                                                         normalize_images)
+    del rpn_model
+    rpn_roi = check_rpn_roi(dev, roi, rpn_feats, rpn_boxes, rpn_sample, 200,
+                            flush, card=smi)
+    del rpn_feats, rpn_boxes, rpn_sample
+    rpn_trained = train(dev, roi, args.out_dir, kind="rpn",
+                        label="RPN training", card=smi,
+                        table="chip_smoke_rpn_train_profile.txt")
+    rpn_step_check = train_step_check(
+        dev, kind="rpn", card=smi,
+        label="RPN train step (fp32 card vs CPU, full width)")
+    rpn_served = serve_rpn(dev, build_rpn, normalize_images, roi,
+                           args.out_dir, card=smi)
+    rpn_ref = rpn_reference_check(dev, build_rpn, card=smi)
 
     # the serving path's kernel: the fused entry, bf16 map → bf16 codes
     main_case = slice_roi["roi_align_batch_chw bf16->bf16 CHW"]
-    # launches over every path that runs the kernel: both heads' serving
-    # and training
+    # launches over every path that runs the kernel: both GT heads'
+    # serving and training, the RPN's training and serving
     serving = {"lstm": served["launches"], "transformer": t_served["launches"]}
     training = {"lstm": trained["launches"],
                 "transformer": t_trained["launches"]}
+    rpn_paths = {"rpn_training": rpn_trained["launches"],
+                 "rpn_serving": rpn_served["launches"]}
     kernel = {
         "name": "roi_align_batch_chw", "route": "cuda",
         "source": "imagecaptioning_tpu_torch/csrc/roi_align.cu",
         "replaces": "imagecaptioning_tpu/ops/roi_align.py:204",
         "launches": sum(v["roi_align_batch_chw"]
                         for path in (serving, training)
-                        for v in path.values()),
+                        for v in path.values())
+        + sum(v["roi_align_batch_chw"] for v in rpn_paths.values()),
         # the entry's checks here and on both heads' served trunk output
         "max_abs_err": max(
             main_case["max_abs_err"],
@@ -1059,25 +1525,36 @@ def main() -> int:
         "also_replaces": "imagecaptioning_tpu/ops/roi_align.py:127 "
                          "(roi_align_pallas_fwd): the same kernel's NHWC "
                          "entry roi_align_batch, and roi_align at N=1",
-        "launches_by_path": {"serving": serving, "training": training},
+        "launches_by_path": {"serving": serving, "training": training,
+                             **rpn_paths},
+        "rpn_shape": rpn_roi["roi_align_batch_chw"],
         "entries": {"serving_shape": slice_roi, "n1_canvas": canvas_roi},
     }
     backward = []
     for name in ("roi_align_bwd_features", "roi_align_bwd_boxes"):
-        # the training path's case: bf16 map, bf16 CHW gradient from fc6
-        main_bwd = train_bwd[f"{name} bf16 map, bf16 CHW grad"]
+        # the main path's case: bf16 map, bf16 CHW gradient from fc6, at the
+        # GT training shape for kernel A, at the RPN's (its only main path)
+        # for kernel B
+        main_bwd = (rpn_roi[name] if name == "roi_align_bwd_boxes" else
+                    train_bwd[f"{name} bf16 map, bf16 CHW grad"])
         backward.append({
             "name": name, "route": "cuda",
             "source": "imagecaptioning_tpu_torch/csrc/roi_align_bwd.cu",
             "replaces": "imagecaptioning_tpu/ops/roi_align.py:234-242",
-            "launches": sum(v[name] for v in training.values()),
-            "main_path": ("GT training with either head, once a step"
-                          if name == "roi_align_bwd_features" else
-                          "none yet: GT boxes are data, so GT training "
-                          "never asks for d_boxes; the RPN slice will"),
-            "max_abs_err": max(v["max_abs_err"] for k, v in
-                               {**train_bwd, **serve_bwd}.items()
-                               if k.startswith(name + " ")),
+            "launches": sum(v[name] for v in training.values())
+            + rpn_trained["launches"][name],
+            "launches_by_path": {"training": {k: v[name] for k, v in
+                                              training.items()},
+                                 "rpn_training": rpn_trained["launches"][
+                                     name]},
+            "main_path": ("GT training with either head and RPN training, "
+                          "once a step" if name == "roi_align_bwd_features"
+                          else "RPN training, once a step (the sampled "
+                          "proposals' gradient; GT boxes are data)"),
+            "max_abs_err": max(rpn_roi[name]["max_abs_err"],
+                               *(v["max_abs_err"] for k, v in
+                                 {**train_bwd, **serve_bwd}.items()
+                                 if k.startswith(name + " "))),
             "tolerance": main_bwd["tolerance"],
             "deterministic": True,
             "ms": main_bwd["ms_cold"],
@@ -1088,6 +1565,7 @@ def main() -> int:
             "library": "autograd backward of affine_grid+grid_sample "
                        "(both gradients, fp32 map)",
             "entries": {
+                "rpn_shape": rpn_roi[name],
                 "training_shape": {k: v for k, v in train_bwd.items()
                                    if k.startswith(name + " ")},
                 "serving_shape": {k: v for k, v in serve_bwd.items()
@@ -1100,6 +1578,9 @@ def main() -> int:
                                "reference_check": t_ref,
                                "training": t_trained,
                                "train_step_check": t_step_check},
+               "rpn": {"roi_kernels": rpn_roi, "training": rpn_trained,
+                       "train_step_check": rpn_step_check,
+                       "serving": rpn_served, "reference_check": rpn_ref},
                "seconds": time.perf_counter() - t_start}
     print(f"summary: {json.dumps(summary)}")
     print(smi)

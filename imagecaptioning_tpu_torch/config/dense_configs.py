@@ -1,5 +1,5 @@
-"""Configuration for the GT-box dense captioner (copy of
-`imagecaptioning_tpu/config/dense_configs.py`).
+"""Configuration for the dense captioners, the GT-box model and the RPN
+model (copy of `imagecaptioning_tpu/config/dense_configs.py`).
 
 Mirrors every field of the reference's edict factories
 (`AlexGTModel/train_opts.py:10-81`), the `traingt.py` artifact-name
@@ -18,7 +18,7 @@ from typing import Any, Dict, Tuple
 
 @dataclass
 class DenseConfig:
-    """One config for GTDenseCaptioner (and, in a later slice, DenseCapRPN)."""
+    """One config for GTDenseCaptioner and DenseCapRPN."""
 
     # 'gt' (AlexGTModel path) | 'rpn' (full DenseCap path)
     model_type: str = "gt"
@@ -149,6 +149,17 @@ def apply_overrides(cfg: DenseConfig, pairs) -> DenseConfig:
 def get_gt_config() -> DenseConfig:
     """Reference `AlexGTModel/train_opts.get_config` (use_lstm=False)."""
     return DenseConfig(model_type="gt", use_lstm=False)
+
+
+def get_densecap_config() -> DenseConfig:
+    """Reference `DenseCap/train_opts.get_config` (use_lstm=True)."""
+    return DenseConfig(
+        model_type="rpn",
+        use_lstm=True,
+        save_path="runs/models/best_model_densecap.ckpt",
+        loss_file="runs/loss_logs/loss_history_densecap.json",
+        result_file="runs/logs/results_history_densecap.json",
+    )
 
 
 def name_gt_model(cfg: DenseConfig):

@@ -1,12 +1,13 @@
 """Inference-from-file image processing with pluggable box proposals
-(copy of `imagecaptioning_tpu/data/proposals.py`, minus `rpn_proposer`,
-which belongs to the RPN slice).
+(port of `imagecaptioning_tpu/data/proposals.py`).
 
 A proposal source is a plain callable `(image_u8 (H, W, 3)) -> boxes
 (R, 4) xcycwh`. `ImageProcessor.preprocess_img` keeps the reference's
 resize contract (`DenseCap/densecap/DataLoader.py:170-186`): shorter
 edge → 700 capped at 720 on the longest edge, /255, ImageNet normalize.
-All of it is host-side numpy; PIL is imported inside the functions.
+All of it is host-side numpy but `rpn_proposer`, which runs the RPN
+model's detection path on the model's device; PIL is imported inside the
+functions.
 """
 
 from __future__ import annotations
@@ -42,6 +43,36 @@ def grid_proposer(cell: int = 64, box: int = 96) -> Proposer:
         boxes = [[float(x), float(y), float(box), float(box)]
                  for y in ys for x in xs]
         return np.asarray(boxes, np.float32)
+    return propose
+
+
+def rpn_proposer(model, pad_to: int = 720) -> Proposer:
+    """Proposals from a `DenseCapRPN`'s `forward_test` on its own device
+    (the self-contained stand-in for the reference's YOLOv5 hub
+    download): the image is fitted into a zero-padded `pad_to`² canvas,
+    and the kept boxes come back in the image's own coordinates."""
+    import torch
+
+    from imagecaptioning_tpu_torch.data.vg_loader import normalize_images
+
+    dev = next(model.parameters()).device
+
+    def propose(img: np.ndarray) -> np.ndarray:
+        h, w = img.shape[:2]
+        scale = 1.0
+        if max(h, w) > pad_to:     # fit the fixed detection canvas
+            scale = pad_to / max(h, w)
+            img = resize_shorter_edge(img, target=int(min(h, w) * scale),
+                                      max_size=pad_to)
+            h, w = img.shape[:2]
+        padded = np.zeros((pad_to, pad_to, 3), np.uint8)
+        padded[:h, :w] = img
+        x = normalize_images(torch.from_numpy(padded[None]).to(dev),
+                             dtype=model.compute_dtype)
+        with torch.inference_mode():
+            boxes, _, _, keep = model.forward_test(x)
+        b = boxes[0][keep[0]].float().cpu().numpy()
+        return (b / scale).astype(np.float32)    # back to raw coords
     return propose
 
 

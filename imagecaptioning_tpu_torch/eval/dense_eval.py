@@ -1,10 +1,21 @@
-"""GT-box dense-captioning evaluation — port of the GT half of
-`imagecaptioning_tpu/eval/dense_eval.py` (:46-160, 253-381): host-side
-numpy, plus the eval loop over the port's region greedy decode.
+"""Dense-captioning evaluation — port of
+`imagecaptioning_tpu/eval/dense_eval.py` (:46-381): host-side numpy,
+plus the GT eval loop over the port's region greedy decode (the RPN
+model's loop, `eval_split_rpn`, is in `train/dense_driver.py`).
 
 - `merge_boxes` / `pluck_boxes`: greedy IoU≥0.7 clustering of the boxes
   and per-cluster mean box + reference-text pluck
   (`DenseCap/densecap/box_utils.py:188-204`, `eval/eval_utils.py:11-30`).
+- `DenseCaptioningEvaluator`: the DenseCap protocol (`eval_utils.py:
+  32-170`): predictions sorted by score, greedily matched to the merged
+  GT with a one-use flag (a zero-overlap prediction still consumes
+  merged-GT slot 0, the reference's quirk); METEOR per record; AP over
+  min_overlap {.3..7} × min_score {−1, 0, .05..25}, 101-point
+  interpolated; `map` averages the language-aware cells, `detmap` the
+  min_score −1 column.
+- `eval_box_recalls`: recall of the top-n proposals at IoU {.5, .7, .9}
+  (`box_utils.py:162-185`, repaired: the reference's indexes a list by
+  a string key).
 - `GTDenseCaptioningEvaluator`: the AlexGTModel protocol
   (`AlexGTModel/eval/eval_gt.py:113-168`): merges the GT boxes, matches
   prediction i (region order) by IoU argmax with a one-use flag, AP over
@@ -29,6 +40,8 @@ import torch
 from imagecaptioning_tpu_torch.eval.scorer import (meteor_pair,
                                                    scorer_provenance)
 
+MIN_OVERLAPS = (0.3, 0.4, 0.5, 0.6, 0.7)
+MIN_SCORES = (-1, 0, 0.05, 0.1, 0.15, 0.2, 0.25)
 GT_MIN_SCORES = (0, 0.05, 0.1, 0.15, 0.2, 0.25)
 
 
@@ -87,6 +100,23 @@ def pluck_boxes(clusters: Sequence[np.ndarray], boxes_corners: np.ndarray,
     return merged, merged_text
 
 
+def eval_box_recalls(boxes_xcycwh: np.ndarray, gt_xcycwh: np.ndarray,
+                     ns: Optional[Sequence[int]] = None) -> Dict[str, float]:
+    """Recall of the top-n proposals (sorted best first) against the GT at
+    IoU {.5, .7, .9}, for each n of `ns` that the proposals reach."""
+    ns = list(ns) if ns is not None else [100, 200, 300]
+    ious = corners_iou(xcycwh_to_corners(boxes_xcycwh),
+                       xcycwh_to_corners(gt_xcycwh))   # (P, G)
+    stats: Dict[str, float] = {}
+    for thresh in (0.5, 0.7, 0.9):
+        hit = np.cumsum(ious > thresh, axis=0) > 0     # GT hit by the top i
+        recalls = hit.sum(axis=1) / max(gt_xcycwh.shape[0], 1)
+        for n in ns:
+            if n <= recalls.shape[0]:
+                stats[f"{thresh:.2f}_recall_at_{n}"] = float(recalls[n - 1])
+    return stats
+
+
 def _meteor(references: Sequence[str], candidate: str) -> float:
     try:
         from nltk import word_tokenize
@@ -122,6 +152,92 @@ def _interpolated_ap(tp: np.ndarray, fp: np.ndarray, npos: int) -> float:
         mask = rec >= (t / 100.0)
         ap += float(np.max(prec * mask)) if prec.size else 0.0
     return ap / 101.0
+
+
+def _average_values(d: Dict[str, float]) -> float:
+    return sum(d.values()) / len(d) if d else 0.0
+
+
+class DenseCaptioningEvaluator:
+    """The DenseCap protocol (`eval_utils.py:32-170`)."""
+
+    def __init__(self):
+        self.all_logprobs: List[np.ndarray] = []
+        self.records: List[Dict] = []
+        self.n = 1
+        self.npos = 0
+
+    def addResult(self, logprobs, boxes, text, target_boxes, target_text):
+        """One image: predicted (logprobs (D,), boxes (D, 4) xcycwh,
+        captions [D]) against its GT (target_boxes (G, 4) xcycwh,
+        captions [G])."""
+        logprobs = np.asarray(logprobs, np.float64).reshape(-1)
+        boxes = xcycwh_to_corners(boxes)
+        target_boxes = xcycwh_to_corners(target_boxes)
+        if not (logprobs.shape[0] == boxes.shape[0] == len(text)
+                and target_boxes.shape[0] == len(target_text)):
+            raise ValueError("predictions or targets of unequal lengths")
+        clusters = merge_boxes(target_boxes, 0.7)
+        merged_boxes, merged_text = pluck_boxes(clusters, target_boxes,
+                                                target_text)
+        order = np.argsort(-logprobs, kind="stable")
+        nt = merged_boxes.shape[0]
+        used = np.zeros(nt, np.int64)
+        ov = corners_iou(merged_boxes, boxes)     # (nt, nd)
+        for ii in order:
+            ovmax, jmax, j_ok = 0.0, 0, False
+            for j in range(nt):
+                if ov[j, ii] > ovmax:
+                    ovmax, jmax, j_ok = float(ov[j, ii]), j, True
+            # the reference consumes the `used` slot even at overlap 0
+            ok = 1
+            if nt > 0 and used[jmax] == 0:
+                used[jmax] = 1
+            else:
+                ok = 0
+            self.records.append({
+                "ok": ok, "ov": ovmax, "candidate": text[ii],
+                "references": merged_text[jmax] if j_ok else [],
+                "imgid": self.n,
+            })
+        self.n += 1
+        self.npos += nt
+        self.all_logprobs.append(np.sort(logprobs)[::-1])
+
+    def numAdded(self) -> int:
+        return self.n - 1
+
+    def evaluate(self) -> Dict:
+        logprobs = (np.concatenate(self.all_logprobs)
+                    if self.all_logprobs else np.zeros(0))
+        scores = score_records(self.records)
+        ix = np.argsort(-logprobs, kind="stable")
+        ap_results: Dict[str, float] = {}
+        det_results: Dict[str, float] = {}
+        for min_overlap in MIN_OVERLAPS:
+            for min_score in MIN_SCORES:
+                tp = np.zeros(len(ix))
+                fp = np.zeros(len(ix))
+                for i, ii in enumerate(ix):
+                    r = self.records[ii]
+                    if (r["ov"] >= min_overlap and r["ok"] == 1
+                            and scores["scores"][ii] > min_score):
+                        tp[i] = 1
+                    else:
+                        fp[i] = 1
+                ap = _interpolated_ap(tp, fp, self.npos)
+                if min_score == -1:
+                    det_results[f"ov{min_overlap}"] = ap
+                else:
+                    ap_results[f"ov{min_overlap}score{min_score}"] = ap
+        return {
+            "map": _average_values(ap_results),
+            "ap_breakdown": ap_results,
+            "detmap": _average_values(det_results),
+            "det_breakdown": det_results,
+            "meteor": scores["average_score"],
+            "scorer": scorer_provenance(),
+        }
 
 
 class GTDenseCaptioningEvaluator:

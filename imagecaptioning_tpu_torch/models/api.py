@@ -26,7 +26,7 @@ def make_region_greedy_fn(model, max_steps: int) -> Callable:
     @torch.inference_mode()
     def run(images, boxes):
         flat_enc = model.encode_flat(images, boxes)
-        carry, step = model.init_decode(flat_enc)
+        carry, step = model.init_decode(flat_enc, max_steps=max_steps)
         return decoding.greedy_decode(step, carry, flat_enc.shape[0],
                                       model.spec.start, max_steps)
     return run
@@ -41,7 +41,7 @@ def make_region_beam_fn(model, max_steps: int, beam_size: int,
     @torch.inference_mode()
     def run(images, boxes):
         flat_enc = model.encode_flat(images, boxes)
-        carry, step = model.init_decode(flat_enc, beam_size)
+        carry, step = model.init_decode(flat_enc, beam_size, max_steps)
         return decoding.beam_search(
             step, carry, flat_enc.shape[0], beam_size,
             start_token=model.spec.start, end_token=model.spec.end,

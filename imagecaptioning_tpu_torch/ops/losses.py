@@ -1,19 +1,86 @@
-"""Caption loss — port of `temporal_cross_entropy` in
-`imagecaptioning_tpu/ops/losses.py:51-61`, the GT captioner's criterion
-(DenseCap `TemporalCrossEntropyLoss` behaviour). The other criteria of
-that module come with the slices that use them (ROADMAP.md, Queue 1).
+"""Loss functions — port of `imagecaptioning_tpu/ops/losses.py` (:51-79,
+131-166), behaviour-compatible with the reference's criteria:
+
+- `temporal_cross_entropy`: the GT captioner's criterion, DenseCap's
+  masked gather CE (`DenseCap/densecap/LSTMLoss.py:4-26`);
+- `sum_cross_entropy`: DenseCap's `CustomCrossEntropyLoss`, the RPN's
+  captioning loss (`LSTMLoss.py:28-40`);
+- `logistic_criterion`: the stable objectness loss
+  (`DenseCap/densecap/LogisticCriterion.py:17-30`);
+- `smooth_l1` and `box_regression_loss`: the masked smooth-L1 on box
+  transforms (`DenseCap/densecap/BoxRegressionCriterion.py`).
+
+All compute in fp32 whatever the inputs' dtype. Softplus is written as
+`logaddexp(x, 0)`, which is `jax.nn.softplus`: `F.softplus` turns into
+the identity above 20. The AlexCap families' criteria come with their
+slices (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def temporal_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                            null_token: int = 0) -> torch.Tensor:
-    """Masked CE averaged over non-NULL timesteps (no smoothing), in fp32
-    whatever the logits' dtype: logits (..., V), targets (...)."""
+    """Masked CE averaged over non-NULL timesteps (no smoothing):
+    logits (..., V), targets (...)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, targets[..., None].long())[..., 0]
     mask = (targets != null_token).float()
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def sum_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                      null_token: int = 0) -> torch.Tensor:
+    """CE summed over the non-NULL positions, divided by their count
+    (`size = target.nonzero().numel() / 2` for a 2-D target): logits
+    (..., V) flattened against targets (...)."""
+    c = logits.shape[-1]
+    logp = torch.log_softmax(logits.float().reshape(-1, c), dim=-1)
+    t = targets.reshape(-1).long()
+    nll = -logp.gather(-1, t[:, None])[:, 0]
+    mask = (t != null_token).float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def logistic_criterion(scores: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """mean(log(1 + exp(−y·s))) with y = 2·label − 1, labels in {0, 1}:
+    sigmoid BCE, stable."""
+    s = scores.float().reshape(-1)
+    y = 2.0 * labels.float().reshape(-1) - 1.0
+    return softplus(-y * s).mean()
+
+
+def smooth_l1(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
+    ax = x.abs()
+    return torch.where(ax < beta, 0.5 * ax * ax / beta, ax - 0.5 * beta)
+
+
+def box_regression_loss(pred_trans: torch.Tensor, target_trans: torch.Tensor,
+                        weight: float = 1.0,
+                        valid_mask: Optional[torch.Tensor] = None,
+                        max_trans: float = 10.0) -> torch.Tensor:
+    """Smooth-L1 between predicted and target transforms (..., P, 4), per
+    slab → (...). Rows with any |target| > `max_trans` are zeroed (the
+    reference's "DIRTY HACK", BoxRegressionCriterion.py:18-25) but still
+    count in the denominator, as the reference's mean over all elements
+    counts them; padding rows (`valid_mask` False, the static shapes'
+    addition) do not."""
+    pred = pred_trans.float()
+    target = target_trans.float()
+    sane = (target.abs() <= max_trans).all(dim=-1)
+    if valid_mask is not None:
+        sane = sane & valid_mask
+        denom = valid_mask.sum(-1).clamp_min(1)
+    else:
+        denom = pred.shape[-2]
+    per_box = smooth_l1(pred - target).mean(dim=-1)
+    return weight * (per_box * sane).sum(-1) / denom

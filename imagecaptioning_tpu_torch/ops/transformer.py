@@ -33,7 +33,7 @@ products and elementwise ops: no TPU kernel sits under them.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -201,10 +201,6 @@ class Decoder(nn.Module):
             for _ in range(num_layers))
         self.fc_out = nn.Linear(embed_size, vocab_out)
         self.dropout = dropout
-        # row t: the cache positions after step t, masked in its scores
-        self.register_buffer(
-            "future", torch.ones(max_length, max_length,
-                                 dtype=torch.bool).triu(1), persistent=False)
 
     def forward(self, tokens: torch.Tensor, enc_out: torch.Tensor,
                 train: bool = False,
@@ -219,27 +215,36 @@ class Decoder(nn.Module):
             x = layer(x, enc_out, trg_masked, train, generator)
         return self.fc_out(x)
 
-    def init_state(self, enc_out: torch.Tensor
-                   ) -> Tuple[List[KV], List[KV]]:
-        """Decode state for `enc_out` (B, L, E): (cross, cache). `cross`
-        holds each layer's cross-attention (k, v), fixed for the whole
-        decode; `cache` each layer's zeroed self-attention (k, v) of
-        (B, max_length, h, d)."""
-        b, t = enc_out.shape[0], self.position_embedding.num_embeddings
+    def init_state(self, enc_out: torch.Tensor, steps: Optional[int] = None
+                   ) -> Tuple[List[KV], Callable]:
+        """Decode state for `enc_out` (B, L, E) and a decode of `steps`
+        steps (default `max_length`): (cache, step). `cache` holds each
+        layer's zeroed self-attention (k, v) of (B, steps, h, d), as the
+        JAX decode sizes its cache by its step count; `step(cache, tokens
+        (B, 1), t)` returns the logits (B, vocab_out) at step t and writes
+        this step's keys and values into `cache`. The step closes over each
+        layer's cross-attention (k, v), fixed for the whole decode, and the
+        causal mask (row t: the cache positions after step t). Past the
+        position table, the last position's embedding is added (JAX's
+        gather clamps the index)."""
+        b = enc_out.shape[0]
+        steps = steps or self.position_embedding.num_embeddings
+        future = torch.ones(steps, steps, dtype=torch.bool,
+                            device=enc_out.device).triu(1)
         cross, cache = [], []
         for layer in self.layers:
             cross.append(layer.transformer_block.attention.project_kv(
                 enc_out, enc_out))
-            k = enc_out.new_zeros((b, t, *cross[-1][0].shape[2:]))
+            k = enc_out.new_zeros((b, steps, *cross[-1][0].shape[2:]))
             cache.append((k, torch.zeros_like(k)))
-        return cross, cache
+        last = self.position_embedding.num_embeddings - 1
 
-    def step(self, cross: List[KV], cache: List[KV], tokens: torch.Tensor,
-             t: int) -> torch.Tensor:
-        """Logits (B, vocab_out) of tokens (B, 1) at step t; writes this
-        step's keys and values into `cache`."""
-        x = self.word_embedding(tokens) + self.position_embedding.weight[t]
-        future = self.future[t]
-        for layer, layer_cache, layer_cross in zip(self.layers, cache, cross):
-            x = layer.step(x, t, layer_cache, layer_cross, future)
-        return self.fc_out(x)[:, 0]
+        def step(cache: List[KV], tokens: torch.Tensor,
+                 t: int) -> torch.Tensor:
+            x = (self.word_embedding(tokens)
+                 + self.position_embedding.weight[min(t, last)])
+            for layer, layer_cache, layer_cross in zip(self.layers, cache,
+                                                       cross):
+                x = layer.step(x, t, layer_cache, layer_cross, future[t])
+            return self.fc_out(x)[:, 0]
+        return cache, step

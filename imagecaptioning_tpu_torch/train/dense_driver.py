@@ -1,5 +1,6 @@
-"""GT-box dense-caption training — port of the GT half of
-`imagecaptioning_tpu/train/dense_driver.py` (:44-375).
+"""Dense-caption training — port of `imagecaptioning_tpu/train/
+dense_driver.py`: the GT-box model (`train_gt`, :44-375) and the full RPN
+model (`train_rpn`, :151-172, 375-619).
 
 `train_gt` reproduces the `traingt.py` loop: hard `max_iter` / `pad`,
 optional curriculum `teacher_prob = 40000/(40000+exp(iter/40000))`
@@ -10,21 +11,27 @@ protocol with the best checkpoint kept on val mAP (`traingt.py:95-109`),
 loss/result history JSONs in the reference schema, resume from the
 newest full-state checkpoint and a preemption checkpoint on SIGTERM.
 
-A step (`make_gt_train_step`) normalizes the uint8 images on the device,
-runs the captioner in training mode (VGG16 and the classifier in bf16
-over fp32 master weights, the ROI kernel forward and its backward
-kernel, the caption head in fp32: the transformer head of the default
-config, or the LSTM head with `use_lstm`), backpropagates and takes one
-optimizer
-update. Runs on the first CUDA card unless the caller passes
-`device="cpu"`.
+`train_rpn` is the JAX package's repaired `DenseCap/train.py` loop (the
+committed reference unpacks 5 values from a 4-tuple, `train.py:49`):
+the RPN model's 5-loss dict each step, the same optimizer groups,
+`eval_split_rpn` (the DenseCap mAP protocol over `forward_test` and
+greedy captions, with proposal recall and an anchor-assignment
+diagnostic) at every checkpoint, the same histories, resume and
+preemption.
+
+A step normalizes the uint8 images on the device, runs the model in
+training mode (VGG16 and the classifier in bf16 over fp32 master
+weights, the ROI kernel forward and its backward kernels, the heads in
+fp32), backpropagates and takes one optimizer update. Dropout masks and
+the RPN sampler's keys come from the trainer's generator. Runs on the
+first CUDA card unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -35,13 +42,18 @@ from imagecaptioning_tpu_torch.data import synthetic
 from imagecaptioning_tpu_torch.data.vg_loader import (VGDataLoader,
                                                       normalize_images)
 from imagecaptioning_tpu_torch.eval import dense_eval
-from imagecaptioning_tpu_torch.models.densecap import GTDenseCaptioner
+from imagecaptioning_tpu_torch.models.densecap import (DenseCapRPN,
+                                                       GTDenseCaptioner)
+from imagecaptioning_tpu_torch.ops import boxes as boxlib
+from imagecaptioning_tpu_torch.ops.box_sampler import candidate_masks
 from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
 from imagecaptioning_tpu_torch.utils.io import LossHistory, ResultsHistory
 from imagecaptioning_tpu_torch.utils.platform import resolve_device
 from imagecaptioning_tpu_torch.utils.weights import seeded_init_
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the VGG trunk's module name in the GT model and in the RPN model
+TRUNKS = ("features", "conv_trunk")
 # torchvision vgg16.features indices of conv1_* and conv2_* (with their
 # ReLUs and pools): frozen for good when the CNN is finetuned
 FROZEN_FEATURES = 10
@@ -101,11 +113,12 @@ class DenseAdam(torch.optim.Adam):
         return super().step(closure)
 
 
-def make_dense_optimizer(cfg: DenseConfig, model: GTDenseCaptioner,
+def make_dense_optimizer(cfg: DenseConfig, model: torch.nn.Module,
                          finetune_start_step: int) -> DenseAdam:
     """Adam over three groups of `model`'s parameters, as the JAX
-    package's `multi_transform`:
-    - frozen: conv1_*/conv2_* (`features.0-9`), and the whole trunk when
+    package's `multi_transform` over `_vgg_label_fn`:
+    - frozen: conv1_*/conv2_* of the trunk (`features.0-9` of the GT
+      model, `conv_trunk.0-9` of the RPN model), and the whole trunk when
       `finetune_cnn` is off. Their `requires_grad` is cleared, which
       leaves them where optax's `set_to_zero` does and spares their
       gradients; they are in no group.
@@ -118,12 +131,12 @@ def make_dense_optimizer(cfg: DenseConfig, model: GTDenseCaptioner,
     if cfg.grad_accum_steps > 1:
         raise NotImplementedError(
             "grad_accum_steps > 1 (optax.MultiSteps) is not ported yet "
-            "(ROADMAP.md, Queue 3)")
+            "(ROADMAP.md, Queue 1)")
     encoder, head = [], []
     for name, p in model.named_parameters():
-        if name.startswith("features."):
-            idx = int(name.split(".")[1])
-            if cfg.finetune_cnn and idx >= FROZEN_FEATURES:
+        top, idx = name.split(".")[:2]
+        if top in TRUNKS:
+            if cfg.finetune_cnn and int(idx) >= FROZEN_FEATURES:
                 encoder.append((name, p))
             else:
                 p.requires_grad_(False)
@@ -161,6 +174,34 @@ def build_gt_model(cfg: DenseConfig, vocab_size: int, seq_length: int,
             param_dtype=DTYPES[cfg.param_dtype])
 
 
+def build_rpn_model(cfg: DenseConfig, vocab_size: int, seq_length: int,
+                    device: torch.device) -> DenseCapRPN:
+    """The RPN model for `cfg` on `device` (JAX `build_rpn_model`): half
+    the sampler's batch positives and half negatives, at most 300 test
+    proposals, the config's loss weights and anchor ladder; compute in
+    `cfg.compute_dtype`, trunk and classifier parameters in
+    `cfg.param_dtype`."""
+    with torch.device(device):
+        return DenseCapRPN(
+            vocab_size=vocab_size, seq_length=seq_length,
+            num_pos=cfg.sampler_batch_size // 2,
+            num_neg=cfg.sampler_batch_size // 2,
+            test_proposals=min(cfg.test_num_proposals, 300),
+            embedding_size=cfg.input_encoding_size, rnn_size=cfg.rnn_size,
+            mid_obj_weight=cfg.mid_objectness_weight,
+            mid_reg_weight=cfg.mid_box_reg_weight,
+            end_obj_weight=cfg.end_objectness_weight,
+            end_reg_weight=cfg.end_box_reg_weight,
+            caption_weight=cfg.captioning_weight,
+            box_reg_decay=cfg.box_reg_decay,
+            with_captioning=not cfg.roi_only, vgg_stages=cfg.vgg_stages,
+            anchor_sizes=tuple(cfg.anchor_sizes),
+            anchor_ratios=tuple(cfg.anchor_ratios),
+            apply_box_decay=cfg.apply_box_decay,
+            compute_dtype=DTYPES[cfg.compute_dtype],
+            param_dtype=DTYPES[cfg.param_dtype])
+
+
 def make_gt_train_step(model: GTDenseCaptioner, optimizer: DenseAdam,
                        use_curriculum: bool, generator: torch.Generator):
     """One update: (uint8 images (N, S, S, 3), boxes (N, R, 4), labels
@@ -180,21 +221,23 @@ def make_gt_train_step(model: GTDenseCaptioner, optimizer: DenseAdam,
     return train_step
 
 
-def gt_train_state(model: GTDenseCaptioner, optimizer: DenseAdam, step: int,
-                   generator: torch.Generator, loader_cursor: int) -> Dict:
-    """The full training state a checkpoint holds."""
-    return {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-            "step": step, "generator": generator.get_state(),
-            "loader_cursor": loader_cursor}
-
-
-def load_gt_train_state(state: Dict, model: GTDenseCaptioner,
-                        optimizer: DenseAdam, generator: torch.Generator):
-    """Put a checkpoint's state back → (step, loader cursor)."""
-    model.load_state_dict(state["model"])
-    optimizer.load_state_dict(state["optimizer"])
-    generator.set_state(state["generator"])
-    return state["step"], state["loader_cursor"]
+def make_rpn_train_step(model: DenseCapRPN, optimizer: DenseAdam,
+                        generator: torch.Generator):
+    """One update: (uint8 images (N, S, S, 3), GT boxes (N, M, 4), box
+    mask (N, M), labels (N, M, T) long) on the model's device → the loss
+    dict (0-d tensors, not synchronised), the gradient taken of `total`.
+    The dropout masks draw from `generator`, and so do the sampler's keys
+    unless they are given (`keys`, as `DenseCapRPN.forward` takes
+    them)."""
+    def train_step(images_u8, boxes, mask, labels, keys=None):
+        x = normalize_images(images_u8, dtype=model.compute_dtype)
+        losses = model(x, boxes, mask, labels, keys=keys, train=True,
+                       generator=generator)
+        optimizer.zero_grad(set_to_none=True)
+        losses["total"].backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in losses.items()}
+    return train_step
 
 
 def _endless_batches(loader: VGDataLoader, cfg: DenseConfig,
@@ -217,42 +260,33 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device):
             torch.from_numpy(batch["box_mask"]).to(device))
 
 
-def train_gt(cfg: DenseConfig, *, device=None,
-             max_iter_override: Optional[int] = None,
-             eval_every_override: Optional[int] = None,
-             synthetic_fallback: bool = True, synthetic_images: int = 8,
-             synthetic_image_size: int = 64, verbose: bool = True) -> Dict:
-    """The traingt.py loop. Returns a summary with the histories' paths,
-    the model, optimizer and loader."""
-    dev = resolve_device(device)
+def _refuse_unported(cfg: DenseConfig) -> None:
     for knob in ("encoder_init", "tensorboard_dir"):
         if getattr(cfg, knob):
             raise NotImplementedError(f"{knob} is not ported yet "
-                                      f"(ROADMAP.md, Queue 3)")
-    loss_file, result_file, save_path = name_gt_model(cfg)
-    loader = make_vg_loader(cfg, synthetic_fallback, synthetic_images,
-                            synthetic_image_size)
-    model = seeded_init_(build_gt_model(cfg, loader.getVocabSize(),
-                                        loader.getSeqLength(), dev), cfg.seed)
-    max_iter = max_iter_override or cfg.max_iters
-    pad = cfg.loss_log_pad
-    eval_every = eval_every_override or cfg.save_checkpoint_every
-    # traingt.py:87-88 counts the train split's IMAGES and compares that
-    # with the iteration count (ROADMAP.md, Queue 3): kept as it is
-    finetune_start = len(loader.train_ix)
-    optimizer = make_dense_optimizer(cfg, model, finetune_start)
-    generator = torch.Generator(dev)
-    generator.manual_seed(cfg.seed + 1)
-    train_step = make_gt_train_step(model, optimizer,
-                                    cfg.use_curriculum_learning, generator)
+                                      f"(ROADMAP.md, Queue 1)")
 
+
+def _train_loop(cfg: DenseConfig, *, model, optimizer, generator, loader,
+                step: Callable[[Dict, int], Dict[str, float]],
+                evaluate: Callable[[], Dict], save_path: str,
+                loss_file: str, result_file: str, loss_key: str,
+                log_every: int, max_iter: int, eval_every: int,
+                verbose: bool) -> Dict:
+    """The dense drivers' shared loop: resume from the newest full-state
+    checkpoint under `save_path` (with `from_checkpoint`); then up to
+    `max_iter` steps of `step(batch, it)` → losses, the loss history's
+    `loss_key` every `log_every` steps, `evaluate()` every `eval_every`
+    steps and at the end, keeping the checkpoint of the best val mAP,
+    and a preemption checkpoint `<save_path>.preempt` on SIGTERM/SIGINT.
+    Returns the summary's common part."""
     loss_hist = LossHistory(loss_file, resume=cfg.from_checkpoint)
     res_hist = ResultsHistory(result_file, resume=cfg.from_checkpoint)
     start_iter, start_images = 0, 0
     resume_from = ckptlib.resume_path(save_path) if cfg.from_checkpoint \
         else None
     if resume_from:
-        start_iter, start_images = load_gt_train_state(
+        start_iter, start_images = ckptlib.load_train_state(
             ckptlib.restore_checkpoint(resume_from, torch.device("cpu")),
             model, optimizer, generator)
         if verbose:
@@ -262,11 +296,11 @@ def train_gt(cfg: DenseConfig, *, device=None,
     # dropped), so the cursor wraps in whole batches
     steps_per_epoch = max(len(loader.train_ix) // cfg.batch_size, 1)
     it = start_iter
-    last_loss = float("nan")
+    last: Dict[str, float] = {}
 
     def state():
         cursor = (it % steps_per_epoch) * cfg.batch_size
-        return gt_train_state(model, optimizer, it, generator, cursor)
+        return ckptlib.train_state(model, optimizer, it, generator, cursor)
     with ckptlib.SignalCheckpointer() as sig, \
             torch.autograd.set_detect_anomaly(cfg.debug_nans):
         for batch in _endless_batches(loader, cfg, start_images):
@@ -278,21 +312,17 @@ def train_gt(cfg: DenseConfig, *, device=None,
                     print(f"preemption checkpoint written at iter {it}")
                 break
             t0 = time.perf_counter()
-            loss = train_step(*to_device(batch, dev),
-                              teacher_prob_schedule(it))
-            last_loss = float(loss)
+            last = step(batch, it)
             step_ms = (time.perf_counter() - t0) * 1000.0
             it += 1
-            if it % pad == 0:
-                loss_hist.append(it, last_loss, step_ms)
+            if it % log_every == 0:
+                loss_hist.append(it, last[loss_key], step_ms)
                 loss_hist.flush()
                 if verbose:
-                    print(f"iter {it}/{max_iter} captioning_loss "
-                          f"{last_loss:.5f} ({step_ms:.1f} ms)")
+                    msg = ", ".join(f"{k} {v:.5f}" for k, v in last.items())
+                    print(f"iter {it}/{max_iter} {msg} ({step_ms:.1f} ms)")
             if it % eval_every == 0 or it == max_iter:
-                results = dense_eval.eval_split_gt(
-                    model, loader, split=1, batch_size=cfg.eval_batch_size,
-                    max_regions=cfg.max_regions)
+                results = evaluate()
                 is_best = res_hist.append(it, results,
                                           score_key=("ap_results", "map"))
                 res_hist.flush()
@@ -302,11 +332,170 @@ def train_gt(cfg: DenseConfig, *, device=None,
                           f"best={is_best}")
                 if is_best:
                     ckptlib.save_checkpoint(save_path, state())
-    return {
-        "iters": it, "max_iter": max_iter, "final_loss": last_loss,
-        "best_val_score": res_hist.best_score,
-        "best_iter": res_hist.best_iter,
-        "loss_file": loss_file, "result_file": result_file,
-        "save_path": save_path, "model": model, "optimizer": optimizer,
-        "loader": loader,
-    }
+    return {"iters": it, "max_iter": max_iter, "final_losses": last,
+            "best_val_score": res_hist.best_score,
+            "best_iter": res_hist.best_iter, "loss_file": loss_file,
+            "result_file": result_file, "save_path": save_path,
+            "model": model, "optimizer": optimizer, "loader": loader}
+
+
+def train_gt(cfg: DenseConfig, *, device=None,
+             max_iter_override: Optional[int] = None,
+             eval_every_override: Optional[int] = None,
+             synthetic_fallback: bool = True, synthetic_images: int = 8,
+             synthetic_image_size: int = 64, verbose: bool = True) -> Dict:
+    """The traingt.py loop. Returns a summary with the histories' paths,
+    the model, optimizer and loader."""
+    dev = resolve_device(device)
+    _refuse_unported(cfg)
+    loss_file, result_file, save_path = name_gt_model(cfg)
+    loader = make_vg_loader(cfg, synthetic_fallback, synthetic_images,
+                            synthetic_image_size)
+    model = seeded_init_(build_gt_model(cfg, loader.getVocabSize(),
+                                        loader.getSeqLength(), dev), cfg.seed)
+    # traingt.py:87-88 counts the train split's IMAGES and compares that
+    # with the iteration count (ROADMAP.md, Queue 3): kept as it is
+    optimizer = make_dense_optimizer(cfg, model, len(loader.train_ix))
+    generator = torch.Generator(dev)
+    generator.manual_seed(cfg.seed + 1)
+    train_step = make_gt_train_step(model, optimizer,
+                                    cfg.use_curriculum_learning, generator)
+
+    def step(batch, it):
+        loss = train_step(*to_device(batch, dev), teacher_prob_schedule(it))
+        return {"captioning_loss": float(loss)}
+
+    def evaluate():
+        return dense_eval.eval_split_gt(
+            model, loader, split=1, batch_size=cfg.eval_batch_size,
+            max_regions=cfg.max_regions)
+    out = _train_loop(
+        cfg, model=model, optimizer=optimizer, generator=generator,
+        loader=loader, step=step, evaluate=evaluate, save_path=save_path,
+        loss_file=loss_file, result_file=result_file,
+        loss_key="captioning_loss", log_every=cfg.loss_log_pad,
+        max_iter=max_iter_override or cfg.max_iters,
+        eval_every=eval_every_override or cfg.save_checkpoint_every,
+        verbose=verbose)
+    out["final_loss"] = out["final_losses"].get("captioning_loss",
+                                                float("nan"))
+    return out
+
+
+# ------------------------------------------------------------- RPN path
+
+# detections scored at or below this are dropped before scoring (the JAX
+# eval's default, which no caller changes)
+RPN_EVAL_SCORE_THRESH = -10.0
+
+
+def eval_split_rpn(model: DenseCapRPN, loader, split: int = 1,
+                   max_regions: Optional[int] = None) -> Dict:
+    """The `DenseCap/eval/eval_utils.eval_split` protocol over the RPN
+    model (on its own device), one image at a time: `forward_test`
+    detections and greedy captions of seq_length + 1 steps, kept where
+    NMS keeps them and the score is above `RPN_EVAL_SCORE_THRESH`, scored
+    by the full DenseCap mAP; per image also the kept detections'
+    proposal recall (`eval_box_recalls` at 10, 50, 100 and all) and the
+    anchor assignment: each real GT's best anchor IoU and how many
+    proposals qualify as positive candidates (`candidate_masks`).
+
+    Returns {'ap_results': {..., 'proposal_recall', 'anchor_assignment'},
+    'num_images': n}."""
+    dev = next(model.parameters()).device
+    steps = loader.getSeqLength() + 1
+    evaluator = dense_eval.DenseCaptioningEvaluator()
+    seen = 0
+    best_anchor_ious: list = []
+    pos_candidates: list = []
+    recall_acc: Dict[str, list] = {}
+    for batch in loader.padded_batches(split, 1, max_regions):
+        images = normalize_images(torch.from_numpy(batch["image"]).to(dev))
+        gt_b = torch.from_numpy(batch["boxes"][0]).to(dev)
+        gt_m = torch.from_numpy(batch["box_mask"][0]).to(dev)
+        with torch.inference_mode():
+            boxes, scores, codes, keep = model.forward_test(images)
+            toks = model.generate_captions(codes, steps)
+            rpn = model.proposals_only(images)
+            best_iou = boxlib.box_iou(gt_b, rpn.anchors).max(dim=1).values
+            _, in_b = boxlib.clip_boxes(rpn.proposals[0], *images.shape[1:3])
+            pos_mask, _, _ = candidate_masks(rpn.proposals[0], gt_b, gt_m,
+                                             in_bounds=in_b)
+        b = boxes[0].cpu().numpy()
+        s = scores[0].cpu().numpy()
+        k = keep[0].cpu().numpy() & (s > RPN_EVAL_SCORE_THRESH)
+        toks = toks.cpu().numpy()
+        m = batch["box_mask"][0] > 0
+        best_anchor_ious.extend(best_iou.cpu().numpy()[m])
+        pos_candidates.append(float(pos_mask.sum()))
+        if k.any():
+            gt_caps = loader.vocab.decode_sequence(batch["labels"][0][m])
+            evaluator.addResult(s[k], b[k],
+                                loader.vocab.decode_sequence(toks[k]),
+                                batch["boxes"][0][m], gt_caps)
+            # how well the detection stage alone covers the GT
+            order = np.argsort(-s[k])
+            n_kept = int(k.sum())
+            rec = dense_eval.eval_box_recalls(
+                b[k][order], batch["boxes"][0][m], ns=[10, 50, 100, n_kept])
+            for key, v in rec.items():
+                # the n_kept column averages consistently as 'at_all'
+                if key.endswith(f"_at_{n_kept}"):
+                    key = key.replace(f"_at_{n_kept}", "_at_all")
+                recall_acc.setdefault(key, []).append(v)
+        seen += 1
+    out = {"ap_results": evaluator.evaluate(), "num_images": seen}
+    out["ap_results"]["proposal_recall"] = {
+        k: round(float(np.mean(v)), 4) for k, v in recall_acc.items()}
+    if best_anchor_ious:
+        bai = np.asarray(best_anchor_ious)
+        pc = np.asarray(pos_candidates)
+        out["ap_results"]["anchor_assignment"] = {
+            "gt_frac_best_anchor_iou_ge_0.7": round(float(
+                (bai >= 0.7).mean()), 4),
+            "gt_frac_best_anchor_iou_ge_0.5": round(float(
+                (bai >= 0.5).mean()), 4),
+            "mean_best_anchor_iou": round(float(bai.mean()), 4),
+            "pos_candidates_mean": round(float(pc.mean()), 2),
+            "pos_occupancy": round(float(
+                np.minimum(pc, model.num_pos).mean() / model.num_pos), 4),
+        }
+    return out
+
+
+def train_rpn(cfg: DenseConfig, *, device=None,
+              max_iter_override: Optional[int] = None,
+              eval_every_override: Optional[int] = None,
+              synthetic_fallback: bool = True, synthetic_images: int = 8,
+              synthetic_image_size: int = 64, verbose: bool = True) -> Dict:
+    """The repaired DenseCap/train.py loop over the RPN model. Returns a
+    summary with the last step's losses, the histories' paths, the model,
+    optimizer and loader."""
+    dev = resolve_device(device)
+    _refuse_unported(cfg)
+    loader = make_vg_loader(cfg, synthetic_fallback, synthetic_images,
+                            synthetic_image_size)
+    model = seeded_init_(build_rpn_model(cfg, loader.getVocabSize(),
+                                         loader.getSeqLength(), dev),
+                         cfg.seed)
+    optimizer = make_dense_optimizer(cfg, model, len(loader.train_ix))
+    generator = torch.Generator(dev)
+    generator.manual_seed(cfg.seed + 1)
+    train_step = make_rpn_train_step(model, optimizer, generator)
+
+    def step(batch, it):
+        images, boxes, labels, mask = to_device(batch, dev)
+        losses = train_step(images, boxes, mask, labels)
+        return {k: float(v) for k, v in losses.items()}
+
+    def evaluate():
+        return eval_split_rpn(model, loader, 1, cfg.max_regions)
+    return _train_loop(
+        cfg, model=model, optimizer=optimizer, generator=generator,
+        loader=loader, step=step, evaluate=evaluate,
+        save_path=cfg.save_path, loss_file=cfg.loss_file,
+        result_file=cfg.result_file, loss_key="total",
+        log_every=cfg.losses_log_every,
+        max_iter=max_iter_override or cfg.max_iters,
+        eval_every=eval_every_override or cfg.save_checkpoint_every,
+        verbose=verbose)

@@ -3,8 +3,9 @@
 orbax.
 
 A checkpoint is one file holding the complete training state as a dict
-(the GT driver's: model and optimizer state dicts, step, the sampling
-generator's state and the loader cursor), so resume is exact. Saving
+(`train_state`: the model and optimizer state dicts, the step, the
+trainer's generator state and the loader cursor, the same for the GT and
+the RPN drivers), so resume is exact. Saving
 writes `<path>.tmp-save` first and swaps it in with renames, keeping the
 previous file as `<path>.old` until the new one is in place: a crash at
 any point leaves a restorable checkpoint. `resume_path` keeps the JAX
@@ -18,6 +19,25 @@ import signal as _signal
 from typing import Any, Dict, Optional
 
 import torch
+
+
+def train_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                step: int, generator: torch.Generator,
+                loader_cursor: int) -> Dict[str, Any]:
+    """The full training state a checkpoint holds."""
+    return {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+            "step": step, "generator": generator.get_state(),
+            "loader_cursor": loader_cursor}
+
+
+def load_train_state(state: Dict[str, Any], model: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer,
+                     generator: torch.Generator):
+    """Put a checkpoint's state back → (step, loader cursor)."""
+    model.load_state_dict(state["model"])
+    optimizer.load_state_dict(state["optimizer"])
+    generator.set_state(state["generator"])
+    return state["step"], state["loader_cursor"]
 
 
 def save_checkpoint(path: str, state: Dict[str, Any]) -> None:

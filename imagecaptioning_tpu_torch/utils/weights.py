@@ -13,17 +13,23 @@
   write, or a reference `.pth`), minus the reference's duplicate `net.*`
   registrations of the same tensors and, for the transformer head, its
   dead encoder word embedding and the encoder position rows after row 0.
-- `gt_train_state_from_jax`: a JAX GT training state (params and the
-  optax Adam state of each group) → the port's model and optimizer state
-  dicts, so that a JAX run resumes in the port.
+- `rpn_state_dict_from_jax`: the JAX `DenseCapRPN` params → the port's
+  `DenseCapRPN` state_dict (JAX's module names, torch layouts), from the
+  same trunk, classifier and LSTM-head helpers; the RPN's convolutions
+  go HWIO → OIHW.
+- `gt_train_state_from_jax` / `rpn_train_state_from_jax`: a JAX GT or
+  RPN training state (params and the optax Adam state of each group) →
+  the port's model and optimizer state dicts, so that a JAX run resumes
+  in the port.
 - `seeded_init_`: random weights from a seed, for serving or training
-  without a trained checkpoint.
+  without a trained checkpoint (a model's `ZERO_INIT` parameters stay
+  zero).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -176,14 +182,34 @@ def gt_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX `GTDenseCaptioner` params (either head) → the port's
     state_dict in the reference AlexGTModel key layout."""
     sd = vgg_features_state_dict(params["features"])
-    last = sd[max((k for k in sd if k.endswith(".weight")),
-                  key=lambda k: int(k.split(".")[1]))]
-    sd.update(vgg_classifier_state_dict(params["classifier"],
-                                        channels=last.shape[0]))
+    sd.update(vgg_classifier_state_dict(
+        params["classifier"], channels=_trunk_channels(sd, "features")))
     if "llm" in params:
         sd.update(language_head_state_dict(params["llm"]))
     else:
         sd.update(transformer_head_state_dict(params))
+    return sd
+
+
+def _trunk_channels(sd: Mapping[str, torch.Tensor], prefix: str) -> int:
+    """Output channels of the last convolution of the trunk `prefix`."""
+    convs = [k for k in sd if k.startswith(prefix + ".")
+             and k.endswith(".weight")]
+    return sd[max(convs, key=lambda k: int(k.split(".")[1]))].shape[0]
+
+
+def rpn_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX `DenseCapRPN` params → the port's `DenseCapRPN` state_dict."""
+    sd = vgg_features_state_dict(params["conv_trunk"], prefix="conv_trunk")
+    sd.update(vgg_classifier_state_dict(
+        params["recog_base"], channels=_trunk_channels(sd, "conv_trunk"),
+        prefix="recog_base"))
+    for name in ("rpn_conv", "rpn_scores", "rpn_trans"):
+        sd.update(_conv(params[name], name))
+    for name in ("objectness", "box_reg"):
+        sd.update(_linear(params[name], name))
+    if "llm" in params:
+        sd.update(language_head_state_dict(params["llm"]))
     return sd
 
 
@@ -196,11 +222,12 @@ def _fill(params, tree):
     return tree if hasattr(tree, "shape") else np.zeros_like(params)
 
 
-def gt_train_state_from_jax(params: Mapping, adam: Mapping,
-                            optimizer) -> Tuple[Dict, Dict]:
-    """A JAX GT training state → (the port's model state_dict, the state
-    dict for `optimizer`, a `DenseAdam` that `make_dense_optimizer` built
-    over the port's model).
+def _train_state_from_jax(params: Mapping, adam: Mapping, optimizer,
+                          convert: Callable[[Mapping], Dict]
+                          ) -> Tuple[Dict, Dict]:
+    """A JAX training state → (the port's model state_dict, the state dict
+    for `optimizer`, a `DenseAdam` that `make_dense_optimizer` built over
+    the port's model), with `convert` the model's params converter.
 
     `params` is the JAX params tree; `adam` maps each optax group name of
     `make_dense_optimizer` ("encoder", "head") to its `scale_by_adam`
@@ -211,13 +238,29 @@ def gt_train_state_from_jax(params: Mapping, adam: Mapping,
     state = {}
     for group in opt_sd["param_groups"]:
         count, mu, nu = adam[group["group"]]
-        mu_sd = gt_state_dict_from_jax(_fill(params, mu))
-        nu_sd = gt_state_dict_from_jax(_fill(params, nu))
+        mu_sd = convert(_fill(params, mu))
+        nu_sd = convert(_fill(params, nu))
         for idx, name in zip(group["params"], group["names"]):
             state[idx] = {"step": torch.tensor(float(count)),
                           "exp_avg": mu_sd[name], "exp_avg_sq": nu_sd[name]}
     opt_sd["state"] = state
-    return gt_state_dict_from_jax(params), opt_sd
+    return convert(params), opt_sd
+
+
+def gt_train_state_from_jax(params: Mapping, adam: Mapping,
+                            optimizer) -> Tuple[Dict, Dict]:
+    """A JAX GT training state → the port's (model, optimizer) state
+    dicts (see `_train_state_from_jax`)."""
+    return _train_state_from_jax(params, adam, optimizer,
+                                 gt_state_dict_from_jax)
+
+
+def rpn_train_state_from_jax(params: Mapping, adam: Mapping,
+                             optimizer) -> Tuple[Dict, Dict]:
+    """A JAX RPN training state → the port's (model, optimizer) state
+    dicts (see `_train_state_from_jax`)."""
+    return _train_state_from_jax(params, adam, optimizer,
+                                 rpn_state_dict_from_jax)
 
 
 def load_gt_checkpoint(path: str) -> Dict[str, torch.Tensor]:
@@ -241,7 +284,11 @@ def load_gt_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
     """Fill every parameter from one seeded generator on the parameters'
     device: U(−1/√fan_in, 1/√fan_in) with the fan-in of the tensor's
-    weight (torch's nn.Linear bound), biases included. Returns `module`."""
+    weight (torch's nn.Linear bound), biases included; those whose names
+    start with an entry of the module's `ZERO_INIT` (the RPN's deltas
+    and box refinement, zero-initialised in JAX) are zeroed. Returns
+    `module`."""
+    zero = getattr(module, "ZERO_INIT", ())
     params = dict(module.named_parameters())
     gen = torch.Generator(device=next(iter(params.values())).device)
     gen.manual_seed(seed)
@@ -250,4 +297,6 @@ def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
         fan_in = weight[0].numel() if weight.dim() > 1 else weight.numel()
         bound = 1.0 / math.sqrt(fan_in)
         p.uniform_(-bound, bound, generator=gen)
+        if name.startswith(zero):
+            p.zero_()
     return module

@@ -18,7 +18,11 @@ The ROI backward kernels against the plain backward (autograd through the
 plain forward): d_features within 1e-5 max-abs in fp32 and within one
 bf16 ulp for a bf16 map (both round an fp32 sum once, in another order);
 d_boxes within 1e-4 relative to the largest component; each kernel
-bitwise the same on a second launch (neither uses float atomics).
+bitwise the same on a second launch (neither uses float atomics), also
+on the RPN's sampled boxes (repeated negatives, boxes far larger than
+the map and partly outside it). One fp32 RPN train step on the card
+against the CPU, from the same weights and sampler keys: each loss
+within 1e-4 relative, each weight within 2·lr.
 """
 
 import numpy as np
@@ -338,6 +342,98 @@ def test_tiny_train_step_on_card_matches_cpu(card, use_lstm):
                                  mask.to(d), 1.0)))
     assert port_roi.roi_align_bwd_features.launches == before + 1
     assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])
+    cpu = dict(twins[0].named_parameters())
+    off = total = 0
+    for name, p in twins[1].named_parameters():
+        d = (p.detach().cpu() - cpu[name].detach()).abs()
+        assert float(d.max()) <= 2 * cfg.learning_rate + 1e-7, name
+        off += int((d > 1e-7).sum())
+        total += d.numel()
+    assert off <= 1e-5 * total
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_kernels_on_rpn_sampled_boxes(card, dtype):
+    """K1's fused entry and kernels A and B on boxes as the RPN samples
+    them at 720²: the reference's anchors (up to 724 px) partly outside
+    the image, and negatives repeated by the sampler's cycling."""
+    from imagecaptioning_tpu_torch.models.densecap import REFERENCE_ANCHORS
+
+    rng = np.random.RandomState(7)
+    n, r, hf, c, s = 2, 48, 45, 64, 720.0
+    wh = np.asarray(REFERENCE_ANCHORS, np.float32)[rng.randint(0, 12, (n, r))]
+    xy = rng.uniform(-40, s + 40, (n, r, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, wh], -1)
+    boxes[:, r // 2:] = boxes[:, r // 2:r // 2 + 4].repeat(6, axis=1)
+    boxes = torch.from_numpy(boxes).to(card)
+    feats = torch.from_numpy(rng.randn(n, hf, hf, c).astype(np.float32))
+    feats = feats.to(card, dtype)
+    hw = (s, s)
+    codes = port_roi.roi_align_batch_chw(feats, boxes, hw, out_dtype=dtype)
+    want = port_roi.roi_align_batch_chw_reference(feats, boxes, hw,
+                                                  out_dtype=dtype)
+    if dtype == torch.float32:
+        torch.testing.assert_close(codes, want, **TOL)
+    else:
+        assert bool(_within_one_bf16_ulp(codes, want).all())
+    grad = torch.from_numpy(rng.randn(*codes.shape).astype(np.float32))
+    grad = grad.to(card, dtype)
+    d_f = port_roi.roi_align_bwd_features(feats, boxes, grad, hw)
+    d_b = port_roi.roi_align_bwd_boxes(feats, boxes, grad, hw)
+    want_f, want_b = port_roi.roi_align_backward_reference(feats, boxes,
+                                                           grad, hw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(d_f, want_f, rtol=0, atol=1e-5)
+    else:
+        assert bool(_within_one_bf16_ulp(d_f, want_f).all())
+    torch.testing.assert_close(d_b, want_b, rtol=1e-4,
+                               atol=1e-4 * float(want_b.abs().max()))
+    assert torch.equal(port_roi.roi_align_bwd_boxes(feats, boxes, grad, hw),
+                       d_b)
+
+
+@pytest.mark.cuda
+def test_tiny_rpn_train_step_on_card_matches_cpu(card):
+    """One fp32 RPN train step on the card and on the CPU, from the same
+    weights and the same sampler keys, dropout off: each loss within 1e-4
+    relative, each weight within 2·lr, at most 1e-5 of them more than
+    1e-7 apart; kernel B launched once, for the sampled boxes."""
+    from imagecaptioning_tpu_torch.config.dense_configs import \
+        get_densecap_config
+    from imagecaptioning_tpu_torch.train import dense_driver as dd
+
+    cfg = get_densecap_config().replace(
+        compute_dtype="float32", vgg_stages=3, input_encoding_size=16,
+        rnn_size=16, sampler_batch_size=16, anchor_sizes=(8.0, 16.0, 32.0))
+    twins = [dd.build_rpn_model(cfg, 24, 5, d)
+             for d in (torch.device("cpu"), card)]
+    twins[1].load_state_dict(seeded_init_(twins[0], 0).state_dict())
+    rng = np.random.RandomState(4)
+    images = torch.from_numpy(rng.randint(0, 256, (2, 64, 64, 3),
+                                          dtype=np.uint8))
+    boxes = torch.from_numpy(np.stack([
+        rng.uniform(16, 48, (2, 4)), rng.uniform(16, 48, (2, 4)),
+        rng.uniform(8, 32, (2, 4)), rng.uniform(8, 32, (2, 4))],
+        -1).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(1, 25, (2, 4, 5)))
+    mask = torch.ones(2, 4)
+    a = (64 // 8) ** 2 * 9        # 3 stages pool 3 times: an 8×8 map
+    keys = torch.from_numpy(rng.rand(2, 2, a).astype(np.float32))
+    losses = []
+    before = port_roi.roi_align_bwd_boxes.launches
+    for model in twins:
+        d = next(model.parameters()).device
+        model.recog_base[2].p = 0.0
+        opt = dd.make_dense_optimizer(cfg, model, 0)
+        step = dd.make_rpn_train_step(model, opt,
+                                      torch.Generator(d).manual_seed(0))
+        losses.append({k: float(v) for k, v in step(
+            images.to(d), boxes.to(d), mask.to(d), labels.to(d),
+            keys=tuple(keys.to(d))).items()})
+    assert port_roi.roi_align_bwd_boxes.launches == before + 1
+    for k, want in losses[0].items():
+        assert abs(losses[1][k] - want) <= 1e-4 * abs(want) + 1e-7, k
     cpu = dict(twins[0].named_parameters())
     off = total = 0
     for name, p in twins[1].named_parameters():

@@ -432,11 +432,11 @@ def test_checkpoint_round_trip_is_bitwise(tmp_path):
         step(u8, torch.from_numpy(boxes), torch.from_numpy(labels).long(),
              torch.from_numpy(mask), 1.0)
     path = str(tmp_path / "ckpt" / "gt.ckpt")
-    ckptlib.save_checkpoint(path, dense_driver.gt_train_state(
+    ckptlib.save_checkpoint(path, ckptlib.train_state(
         model, opt, 2, gen, 4))
     assert os.listdir(tmp_path / "ckpt") == ["gt.ckpt"]
     model2, opt2, gen2 = _train_objects(seed=1)
-    assert dense_driver.load_gt_train_state(
+    assert ckptlib.load_train_state(
         ckptlib.restore_checkpoint(path), model2, opt2, gen2) == (2, 4)
     for (n, a), (_, b) in zip(model.state_dict().items(),
                               model2.state_dict().items()):
