@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Card smoke run of the PyTorch port (imagecaptioning_tpu_torch): GT-box
 dense-caption serving and training on one CUDA card, with the LSTM head
-(phases 4–9) and the transformer head (phases 10–11), and the full RPN
-DenseCap model's training and serving (phases 12–15).
+(phases 4–9) and the transformer head (phases 10–11), the full RPN
+DenseCap model's training and serving (phases 12–15), and the AlexCap
+LSTM captioner on ResNet-101 (phases 16–18).
 
     python3 chip_smoke.py
 
@@ -55,6 +56,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (events hot and cold, CUPTI, host enqueue), beside the plain version,
    autograd's backward through affine_grid+grid_sample (both gradients)
    and the bound (bytes over 3.35 TB/s against the flops over 67 TFLOP/s);
+   then the same checks at the training shape for outputs of (33, 2),
+   (17, 16) and (9, 40), beyond the staged kernels' 32 a side and 256
+   cells, which the C entries send to their general kernels;
 8. full-width training: the same model with fp32 master weights and bf16
    compute, Adam in the default `DenseConfig`'s three groups, over a
    `VGDataLoader` of 10 in-memory 720² uint8 images (8 in the train split,
@@ -117,23 +121,46 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    kernels); then the fp32 model on the card against the CPU on a small
    input, its box heads moved off zero as in 14 (so the boxes are not the
    anchors): keep identical, boxes and scores within 1e-4 relative,
-   tokens identical where both keep.
-Every line of phases 4–15 carries the card's name and power limit. The
+   tokens identical where both keep;
+16. AlexCap serving at full width from seed 0 (`get_lstm_config`:
+   ResNet-101 in bf16 over bf16 weights, LSTM 768, embedding 1024, the
+   head fp32, vocab 2,048 + 3, 17 steps): 64 uint8 218×178 images on the
+   card → `resnet_v2_preprocess` → greedy and beam-3 (raw-logit) decode;
+   captions/s from CUDA events over 5 calls after a warm-up, before this
+   phase's profiler; the median card busy time of 3 profiled calls each,
+   its idle share against the event-timed call, kernels a call and by
+   kind; no ROI kernel launched; then the weights in fp32 on the card
+   against the CPU on 2 images: teacher-forced logits within 1e-4, greedy
+   and beam-3 tokens identical;
+17. AlexCap training (batch 12, bf16 over fp32 masters, Adam in the
+   encoder and head groups, clip 1.0) over 100 synthetic CelebA-size
+   images (96 train) with 16-token captions over 2,048 words, the train
+   split staged on the card and fed index batches (which must equal the
+   streaming path's): 2 warm-up and 12 event-timed steps in the frozen
+   phase (trunk in eval mode, no gradient, no Adam state), then the same
+   in the finetune phase (BatchNorm on batch statistics, the trunk
+   trained): images/s, busy (median of 3 profiled steps), idle share,
+   kernels a step and peak memory each; a checkpoint (model with its
+   BatchNorm buffers, optimizer, generator, step, iterators) restored
+   bitwise;
+18. one fp32 finetune step at full width on the card against the CPU from
+   the same weights and batch (2 × 218×178 → 224²): the loss within 1e-5
+   relative, each gradient before the update as in 9, BatchNorm's running
+   statistics within 1e-5, every weight within 2·lr.
+Every line of phases 4–18 carries the card's name and power limit. The
 kernels line counts each kernel's launches over every path that runs it
 (`launches`, split in `launches_by_path`): the fused forward in both GT
 heads' serving and training and in RPN training (`rpn_training`, one a
 step) and serving (`rpn_serving`, one a call); kernel A in both GT heads'
 training and in RPN training; kernel B in RPN training, its only main
-path (its numbers there are the RPN shape's; K1's and A's `rpn_shape`).
+path (its numbers there are the RPN shape's; K1's and A's `rpn_shape`);
+the AlexCap paths launch none of them (`alexcap_serving`,
+`alexcap_training`: 0).
 The last three lines: the card as nvidia-smi reports it, one JSON line of
 per-kernel numbers, and {"ok": true, "device": ...}. The profiler's full
-tables go to <out-dir>/chip_smoke_profile.txt and
-<out-dir>/chip_smoke_train_profile.txt, and the transformer's to
-<out-dir>/chip_smoke_transformer_profile.txt and
-<out-dir>/chip_smoke_transformer_train_profile.txt, the RPN's to
-<out-dir>/chip_smoke_rpn_train_profile.txt and
-<out-dir>/chip_smoke_rpn_serving_profile.txt (`--out-dir`, default
-build/chip_smoke), where the checkpoints of phases 8, 11 and 13 are
+tables go to <out-dir>/chip_smoke_*_profile.txt, one for each profiled
+decode or step (`--out-dir`, default
+build/chip_smoke), where the checkpoints of phases 8, 11, 13 and 17 are
 written and removed.
 """
 
@@ -164,6 +191,8 @@ ROI_WRAPPERS = ("roi_align_batch_chw", "roi_align_batch", "roi_align",
 # (`train_step_check`), in all but GRAD_SHARE_TOL of each tensor's elements
 GRAD_REL_TOL = 1e-4
 GRAD_SHARE_TOL = 0.01
+# the backward's outputs beyond 32 a side or 256 cells (general kernels)
+GENERAL_BWD_SHAPES = ((33, 2), (17, 16), (9, 40))
 TRAIN_IMAGES, TRAIN_SPLIT, TRAIN_IMAGE = 10, 8, 720
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_WINDOWS = 4, 2, 12, 3
 LOSS_REL_TOL = 1e-4
@@ -172,6 +201,9 @@ LOSS_REL_TOL = 1e-4
 RPN_IMAGES, RPN_PROPOSALS, RPN_SERVE_CALLS = 4, 300, 3
 # kinds of the card's work in a profiled training step, by kernel name
 # (the first match wins; the rest is elementwise work and reductions)
+# profiled calls of each decode or step: the busy time read is their
+# median (the profiler sometimes drops a call's events)
+PROFILED_CALLS = 3
 KERNEL_KINDS = (("convolution (cuDNN)", ("fprop", "dgrad", "wgrad")),
                 ("matrix product (cuBLAS)", ("gemm",)),
                 ("optimizer (foreach)", ("multi_tensor_apply",)),
@@ -538,17 +570,16 @@ def serve(dev, model, api, normalize_images, roi, flush, label="serving",
     return res_d, run_beam, run_greedy
 
 
-def profile(run_beam, run_greedy, out_dir: Path, label="profile", card="",
-            table="chip_smoke_profile.txt", served=None):
-    """Device busy share, kernels and copies launched, and time by kernel
-    for one beam and one greedy decode (torch.profiler); the full tables
-    go to `out_dir`/`table`. The idle share is read against the profiled
-    call, whose host time the profiler's CPU tracing inflates, and, given
-    `served` (`serve`'s result), against its event-timed ms per call."""
+def profiled(fn, out_dir: Path, table: str, calls: int = PROFILED_CALLS):
+    """`calls` profiled calls of `fn` (each synchronised) → the median call
+    by the card's busy ms: its wall ms, busy ms (kernels and copies, not
+    the optimizer's annotated ranges nor the profiler's buffers), the busy
+    ms of every call, kernels and copies, busy ms and counts by kind
+    (KERNEL_KINDS) and the top kernels; its table goes to `out_dir`/`table`.
+    The profiler sometimes drops a call's events, hence the median."""
     from torch.profiler import ProfilerActivity, profile as prof
-    out = {"card": card}
-    tables = []
-    for name, fn in (("beam", run_beam), ("greedy", run_greedy)):
+    runs = []
+    for _ in range(calls):
         with prof(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as p:
             t0 = time.perf_counter()
@@ -557,25 +588,51 @@ def profile(run_beam, run_greedy, out_dir: Path, label="profile", card="",
             wall_ms = (time.perf_counter() - t0) * 1e3
         events = p.key_averages()
         kernels = sorted((e for e in events
-                          if str(e.device_type).endswith("CUDA")),
+                          if str(e.device_type).endswith("CUDA")
+                          and not e.is_user_annotation
+                          and e.key != "Activity Buffer Request"),
                          key=lambda e: -e.self_device_time_total)
-        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        out[name] = {
-            "wall_ms": wall_ms,
-            "device_busy_ms": dev_ms,
-            "device_idle_share": (1 - dev_ms / wall_ms) if dev_ms
-            else "not measured",
-            "device_idle_share_of_timed_call":
-                (1 - dev_ms / served[f"{name}_ms"]) if dev_ms and served
-                else "not measured",
-            "kernels_and_copies": sum(e.count for e in kernels),
-            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                               for e in kernels[:8]},
-        }
-        tables.append(f"== {name} ==\n" + events.table(
-            sort_by="self_device_time_total", row_limit=30))
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        runs.append((busy, wall_ms, kernels, events))
+    busy, wall_ms, kernels, events = sorted(
+        runs, key=lambda r: r[0])[calls // 2]
+    by_kind, count_by_kind = {}, {}
+    for e in kernels:
+        kind = next((k for k, words in KERNEL_KINDS
+                     if any(w in e.key for w in words)),
+                    "elementwise, reductions, other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
+        count_by_kind[kind] = count_by_kind.get(kind, 0) + e.count
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / table).write_text("\n".join(tables))
+    (out_dir / table).write_text(events.table(
+        sort_by="self_device_time_total", row_limit=40))
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "busy_ms_each": [r[0] for r in runs],
+            "kernels_and_copies": sum(e.count for e in kernels),
+            "device_ms_by_kind": by_kind,
+            "kernels_and_copies_by_kind": count_by_kind,
+            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                               for e in kernels[:10]}}
+
+
+def profile(run_beam, run_greedy, out_dir: Path, label="profile", card="",
+            table="chip_smoke_profile.txt", served=None):
+    """`profiled` for one beam and one greedy decode, the tables to
+    `out_dir`/`table` with `_profile` made `_beam_profile` and
+    `_greedy_profile`. The idle share is read against the profiled call,
+    whose host time the profiler's CPU tracing inflates, and, given
+    `served` (`serve`'s result), against its event-timed ms per call."""
+    out = {"card": card}
+    for name, fn in (("beam", run_beam), ("greedy", run_greedy)):
+        r = profiled(fn, out_dir, table.replace("_profile",
+                                                f"_{name}_profile"))
+        dev_ms = r["device_busy_ms"]
+        r["device_idle_share"] = ((1 - dev_ms / r["wall_ms"]) if dev_ms
+                                  else "not measured")
+        r["device_idle_share_of_timed_call"] = (
+            (1 - dev_ms / served[f"{name}_ms"]) if dev_ms and served
+            else "not measured")
+        out[name] = r
     print(f"{label}: {json.dumps(out)}", flush=True)
     return out
 
@@ -658,39 +715,44 @@ def compare_boxes(got, want) -> dict:
             "tolerance": f"{GRAD_REL_TOL} relative to max |d_boxes|"}
 
 
-def check_roi_backward(dev, roi, n, r, hf, c, image, iters, flush):
+def check_roi_backward(dev, roi, n, r, hf, c, image, iters, flush,
+                       out_hw=(7, 7)):
     """Both backward kernels vs the plain backward at one shape, with their
     event times, bounds, the plain version's and the library's times →
     ({case: numbers}, {case: the call}), cases named "<entry> <maps and
-    gradient>" (raises if a kernel disagrees or is not deterministic)."""
+    gradient>" (raises if a kernel disagrees or is not deterministic).
+    Outputs beyond 32 a side or 256 cells take the general kernels."""
     rng = np.random.RandomState(SEED + 100 + n)
     f32 = torch.from_numpy(rng.randn(n, hf, hf, c).astype(np.float32)).to(dev)
     boxes = torch.from_numpy(edge_boxes(rng, n, r, image, image)).to(dev)
-    g = torch.from_numpy(rng.randn(n, r, 7, 7, c).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.randn(n, r, *out_hw, c).astype(np.float32)
+                         ).to(dev)
     g_chw = g.permute(0, 1, 4, 2, 3).reshape(n, r, -1).contiguous()
     hw = (float(image), float(image))
     bf16 = torch.bfloat16
     inputs = {"bf16 map, bf16 CHW grad": (f32.to(bf16), g_chw.to(bf16)),
               "fp32 map, fp32 CHW grad": (f32, g_chw),
               "fp32 map, fp32 NHWC grad": (f32, g)}
-    lib_call = grid_sample_roi_backward(f32, boxes, hw, (7, 7), g)
+    lib_call = grid_sample_roi_backward(f32, boxes, hw, out_hw, g)
     lib = {"library_ms": device_ms(lib_call, iters // 4, flush),
            "library_ms_hot": device_ms(lib_call, iters // 4)}
-    shape = f"N={n} R={r} {hf}x{hf}x{c} image {image} -> 7x7"
+    shape = f"N={n} R={r} {hf}x{hf}x{c} image {image} -> {out_hw[0]}x{out_hw[1]}"
     def entries(feats, grad):
         """entry → (kernel call, plain call, its check, what the kernel
         reads, its fp32 flops: 4 FMAs per gradient element for A; for B
         two tap differences, two weighted sums and two FMAs)."""
         return {
             "roi_align_bwd_features": (
-                lambda: roi.roi_align_bwd_features(feats, boxes, grad, hw),
+                lambda: roi.roi_align_bwd_features(feats, boxes, grad, hw,
+                                                   out_hw),
                 lambda: roi.roi_align_backward_reference(
-                    feats, boxes, grad, hw, need_boxes=False)[0],
+                    feats, boxes, grad, hw, out_hw, need_boxes=False)[0],
                 compare, (grad, boxes), 8 * grad.numel()),
             "roi_align_bwd_boxes": (
-                lambda: roi.roi_align_bwd_boxes(feats, boxes, grad, hw),
+                lambda: roi.roi_align_bwd_boxes(feats, boxes, grad, hw,
+                                                out_hw),
                 lambda: roi.roi_align_backward_reference(
-                    feats, boxes, grad, hw, need_features=False)[1],
+                    feats, boxes, grad, hw, out_hw, need_features=False)[1],
                 compare_boxes, (feats, boxes, grad), 14 * grad.numel()),
         }
     out, calls = {}, {}
@@ -793,7 +855,6 @@ def train(dev, roi, out_dir: Path, kind="lstm", label="training", card="",
           table="chip_smoke_train_profile.txt"):
     """Full-width training (phase 8; 11 with the transformer head, 13 with
     the RPN model) → its numbers (raises on a failed check)."""
-    from torch.profiler import ProfilerActivity, profile as prof
     from imagecaptioning_tpu_torch.data.vg_loader import VGDataLoader
     from imagecaptioning_tpu_torch.train import dense_driver as dd
     from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
@@ -864,32 +925,11 @@ def train(dev, roi, out_dir: Path, kind="lstm", label="training", card="",
             f"after {TRAIN_WARMUP} updates {encoder_still_before}, moved "
             f"after {TRAIN_WARMUP + steps} {encoder_moved_after}")
 
-    with prof(activities=[ProfilerActivity.CPU,
-                          ProfilerActivity.CUDA]) as p:
-        t1 = time.perf_counter()
-        run(1)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t1) * 1e3
-    events = p.key_averages()
-    # the card's own work: kernels and copies, not the ranges the
-    # optimizer annotates around its kernels, nor the profiler's buffers
-    kernels = sorted((e for e in events
-                      if str(e.device_type).endswith("CUDA")
-                      and not e.is_user_annotation
-                      and e.key != "Activity Buffer Request"),
-                     key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    by_kind, count_by_kind = {}, {}
-    for e in kernels:
-        kind_of = next((k for k, words in KERNEL_KINDS
-                        if any(w in e.key for w in words)),
-                       "elementwise, reductions, other")
-        by_kind[kind_of] = (by_kind.get(kind_of, 0.0)
-                            + e.self_device_time_total / 1e3)
-        count_by_kind[kind_of] = count_by_kind.get(kind_of, 0) + e.count
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / table).write_text(events.table(
-        sort_by="self_device_time_total", row_limit=40))
+    profiled_step = profiled(lambda: run(1), out_dir, table)
+    # the profiler slows the host, so the idle share is read against an
+    # unprofiled step's time
+    profiled_step["device_idle_share_of_timed_step"] = (
+        1 - profiled_step["device_busy_ms"] / step_ms)
 
     # a full checkpoint, saved and restored into a fresh model and
     # optimizer, must give back the same bits
@@ -933,16 +973,7 @@ def train(dev, roi, out_dir: Path, kind="lstm", label="training", card="",
         "encoder_lr_boundary_update": finetune_start,
         "encoder_unchanged_before_boundary": encoder_still_before,
         "encoder_moved_after_boundary": encoder_moved_after,
-        "profiled_step": {
-            "wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
-            # the profiler slows the host, so the idle share is read
-            # against an unprofiled step's time
-            "device_idle_share_of_timed_step": 1 - busy_ms / step_ms,
-            "device_ms_by_kind": by_kind,
-            "kernels_and_copies_by_kind": count_by_kind,
-            "kernels_and_copies": sum(e.count for e in kernels),
-            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                               for e in kernels[:10]}},
+        "profiled_step": profiled_step,
         "checkpoint": {"gb": ckpt_gb, "save_s": save_s,
                        "round_trip_bitwise": round_trip},
     }
@@ -1210,7 +1241,6 @@ def serve_rpn(dev, build, normalize_images, roi, out_dir, card=""):
     call (both loops timed alone on the call's own inputs), the card's
     NMS against the CPU's on those inputs (identical indices and keep),
     and one profiled call (busy time, idle share, kernels)."""
-    from torch.profiler import ProfilerActivity, profile as prof
     from imagecaptioning_tpu_torch.ops import boxes as boxlib
     from imagecaptioning_tpu_torch.ops.nms import nms
     from imagecaptioning_tpu_torch.utils.weights import seeded_init_
@@ -1274,22 +1304,10 @@ def serve_rpn(dev, build, normalize_images, roi, out_dir, card=""):
         raise AssertionError("the card's NMS and the CPU's differ on the "
                              "same boxes and scores")
 
-    with prof(activities=[ProfilerActivity.CPU,
-                          ProfilerActivity.CUDA]) as p:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    events = p.key_averages()
-    kernels = sorted((e for e in events
-                      if str(e.device_type).endswith("CUDA")
-                      and not e.is_user_annotation
-                      and e.key != "Activity Buffer Request"),
-                     key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "chip_smoke_rpn_serving_profile.txt").write_text(events.table(
-        sort_by="self_device_time_total", row_limit=40))
+    profiled_call = profiled(run, out_dir,
+                             "chip_smoke_rpn_serving_profile.txt")
+    profiled_call["device_idle_share_of_timed_call"] = (
+        1 - profiled_call["device_busy_ms"] / call_ms)
     res = {
         "card": card,
         "images": f"{RPN_IMAGES} x {TRAIN_IMAGE}^2 uint8, "
@@ -1302,12 +1320,7 @@ def serve_rpn(dev, build, normalize_images, roi, out_dir, card=""):
         "nms_ms": {"first_0.7": first_ms, "final_0.3": final_ms},
         "nms_share_of_call": (first_ms + final_ms) / call_ms,
         "nms_card_equals_cpu": same_nms, "launches": launches,
-        "profiled_call": {
-            "wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share_of_timed_call": 1 - busy_ms / call_ms,
-            "kernels_and_copies": sum(e.count for e in kernels),
-            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                               for e in kernels[:10]}},
+        "profiled_call": profiled_call,
     }
     print(f"RPN serving: {json.dumps(res)}", flush=True)
     return res
@@ -1353,6 +1366,480 @@ def rpn_reference_check(dev, build, card=""):
             and score_err <= LOGIT_TOL
             and res["kept_token_agreement"] == 1.0):
         raise AssertionError(f"RPN card outputs differ from the CPU's: {res}")
+    return res
+
+
+# ------------------------------------------------- phases 16-18: AlexCap
+
+ALEX_IMAGES, ALEX_HW, ALEX_VOCAB, ALEX_SEQ = 64, (218, 178), 2048, 16
+ALEX_CALLS = 5
+ALEX_TRAIN_IMAGES, ALEX_WARMUP, ALEX_STEPS = 100, 2, 12
+BN_TOL = 1e-5
+ALEX_LOSS_TOL = 1e-5
+# phase 18's fp32 gate: the card's fp32 step may be no further from the
+# CPU's fp64 step than FP32_K times the CPU's own fp32 step is, plus
+# FP32_FLOOR (relative, per tensor)
+FP32_K, FP32_FLOOR = 2.0, 1e-5
+
+
+def alexcap_cfg(**kw):
+    from imagecaptioning_tpu_torch.config.configs import get_lstm_config
+    return get_lstm_config().replace(**kw)
+
+
+def alexcap_serve(dev, roi, out_dir: Path, card=""):
+    """Phase 16: the AlexCap LSTM captioner served at full width from seed
+    0 (ResNet-101 in bf16 over bf16 weights, the head fp32, vocab 2048 + 3,
+    17 steps) on ALEX_IMAGES uint8 CelebA-size images on the card:
+    preprocess → trunk → greedy and beam-3 (raw-logit) decode through
+    `models.api`. captions/s from CUDA events over ALEX_CALLS calls after a
+    warm-up and before this phase's profiler; then the median card busy
+    time of PROFILED_CALLS profiled calls each, its idle share against the
+    event-timed call, and the kernels a call. No ROI kernel runs on this
+    path: every ROI wrapper's count stays 0."""
+    from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
+    from imagecaptioning_tpu_torch.models import api
+    from imagecaptioning_tpu_torch.models.captioners import build_model
+    from imagecaptioning_tpu_torch.utils.weights import seeded_init_
+
+    t0 = time.perf_counter()
+    cfg = alexcap_cfg(param_dtype="bfloat16")
+    model = seeded_init_(build_model(cfg, ALEX_VOCAB, ALEX_SEQ, device=dev),
+                         SEED).eval()
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED + 16)
+    images_u8 = torch.from_numpy(rng.randint(
+        0, 256, (ALEX_IMAGES, *ALEX_HW, 3), dtype=np.uint8)).to(dev)
+    greedy = api.make_greedy_fn(model, ALEX_SEQ + 1)
+    beam = api.make_beam_fn(model, ALEX_SEQ + 1, BEAM)
+    outs = {}
+
+    def run_greedy():
+        outs["greedy"] = greedy(resnet_v2_preprocess(images_u8))
+
+    def run_beam():
+        outs["beam"] = beam(resnet_v2_preprocess(images_u8))
+    for fn in (run_greedy, run_beam):          # warm-up (cuDNN, cuBLAS)
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in ROI_WRAPPERS:
+        getattr(roi, name).launches = 0
+    greedy_ms = cuda_ms(run_greedy, iters=ALEX_CALLS, warmup=0)
+    beam_ms = cuda_ms(run_beam, iters=ALEX_CALLS, warmup=0)
+    launches = {name: getattr(roi, name).launches for name in ROI_WRAPPERS}
+    if any(launches.values()):
+        raise AssertionError(f"ROI kernels launched on the AlexCap path: "
+                             f"{launches}")
+    with torch.inference_mode():
+        x = resnet_v2_preprocess(images_u8)
+        pre_ms = cuda_ms(lambda: resnet_v2_preprocess(images_u8), iters=5)
+        trunk_ms = cuda_ms(lambda: model.encode(x), iters=5)
+    toks, res = outs["greedy"], outs["beam"]
+    v3 = ALEX_VOCAB + 3
+    if toks.shape != (ALEX_IMAGES, ALEX_SEQ + 1) or res.tokens.shape != (
+            ALEX_IMAGES, BEAM, ALEX_SEQ + 1):
+        raise AssertionError(f"token shapes {tuple(toks.shape)}, "
+                             f"{tuple(res.tokens.shape)}")
+    for t in (toks, res.tokens):
+        if int(t.min()) < 0 or int(t.max()) >= v3:
+            raise AssertionError("token ids out of range")
+    if not bool(torch.isfinite(res.scores[:, 0]).all()):
+        raise AssertionError("non-finite best-beam scores")
+    out = {"card": card,
+           "model": f"ResNet {cfg.backbone_stages or (3, 4, 23, 3)} (bf16) "
+                    f"+ LSTM {cfg.lstm_size}, embedding {cfg.embedding_size}, "
+                    f"vocab {ALEX_VOCAB}+3; "
+                    f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}"
+                    f" M params",
+           "images": f"{ALEX_IMAGES} x {ALEX_HW[0]}x{ALEX_HW[1]} uint8",
+           "steps": ALEX_SEQ + 1, "beam": BEAM, "init_s": init_s,
+           "greedy_ms": greedy_ms, "beam_ms": beam_ms,
+           "greedy_captions_per_s": ALEX_IMAGES / greedy_ms * 1e3,
+           "beam3_captions_per_s": ALEX_IMAGES / beam_ms * 1e3,
+           "preprocess_ms": pre_ms, "trunk_ms": trunk_ms,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "roi_launches": launches,
+           "beam_finished_share": float(res.finished[:, 0].float().mean()),
+           "greedy_tokens_head": toks[0].tolist()}
+    for name, fn, ms in (("greedy", run_greedy, greedy_ms),
+                         ("beam", run_beam, beam_ms)):
+        p = profiled(fn, out_dir, f"chip_smoke_alexcap_{name}_profile.txt")
+        p["device_idle_share_of_timed_call"] = 1 - p["device_busy_ms"] / ms
+        out[f"{name}_profile"] = p
+    print(f"AlexCap serving: {json.dumps(out)}", flush=True)
+    return out, model
+
+
+def alexcap_reference_check(dev, model, card=""):
+    """Phase 16's check: the served weights in fp32 on the card against
+    the CPU on 2 uint8 images (preprocess included): teacher-forced logits
+    within LOGIT_TOL, greedy and beam-3 tokens identical."""
+    from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
+    from imagecaptioning_tpu_torch.models import api
+    from imagecaptioning_tpu_torch.models.captioners import build_model
+
+    cfg = alexcap_cfg(compute_dtype="float32")
+    sd = {k: (v.float() if v.is_floating_point() else v).cpu()
+          for k, v in model.state_dict().items()}
+    rng = np.random.RandomState(SEED + 17)
+    images = torch.from_numpy(rng.randint(0, 256, (2, *ALEX_HW, 3),
+                                          dtype=np.uint8))
+    labels = torch.from_numpy(rng.randint(1, ALEX_VOCAB + 1, (2, ALEX_SEQ)))
+    got = []
+    for d in (torch.device("cpu"), dev):
+        twin = build_model(cfg, ALEX_VOCAB, ALEX_SEQ, device=d).eval()
+        twin.load_state_dict(sd)
+        x = resnet_v2_preprocess(images.to(d))
+        with torch.inference_mode():
+            got.append((twin(x, labels.to(d)).logits.cpu(),
+                        api.make_greedy_fn(twin, ALEX_SEQ + 1)(x).cpu(),
+                        api.make_beam_fn(twin, ALEX_SEQ + 1, BEAM)(x)))
+        del twin
+    (lc, gc, bc), (ld, gd, bd) = got
+    err = float((ld - lc).abs().max())
+    res = {"card": card, "logits_max_abs_err": err,
+           "logits_max_abs": float(lc.abs().max()),
+           "greedy_token_agreement": float((gc == gd).float().mean()),
+           "beam_token_agreement": float(
+               (bc.tokens == bd.tokens.cpu()).float().mean()),
+           "beam_score_max_abs_err": float(
+               (bc.scores - bd.scores.cpu()).abs().max()),
+           "tolerance": f"logits {LOGIT_TOL} absolute; tokens identical"}
+    print(f"AlexCap reference check (fp32 card vs CPU, full width): "
+          f"{json.dumps(res)}", flush=True)
+    if not (np.isfinite(err) and err <= LOGIT_TOL
+            and res["greedy_token_agreement"] == 1.0
+            and res["beam_token_agreement"] == 1.0):
+        raise AssertionError(f"AlexCap card differs from the CPU: {res}")
+    return res
+
+
+def alexcap_data(seed=SEED + 18):
+    """A Face2Text-style split held in memory: ALEX_TRAIN_IMAGES uint8
+    CelebA-size images (all but 4 in the train split), captions of 2..16
+    words over ALEX_VOCAB words → (arrays, dicts)."""
+    rng = np.random.RandomState(seed)
+    n = ALEX_TRAIN_IMAGES
+    lengths = rng.randint(2, ALEX_SEQ + 1, n)
+    labels = rng.randint(1, ALEX_VOCAB + 1, (n, ALEX_SEQ)).astype(np.int32)
+    labels[np.arange(ALEX_SEQ)[None] >= lengths[:, None]] = 0
+    split = np.zeros(n, np.int32)
+    split[-4:-2], split[-2:] = 1, 2
+    arrays = {"images": rng.randint(0, 256, (n, *ALEX_HW, 3), dtype=np.uint8),
+              "labels": labels, "lengths": lengths.astype(np.int32),
+              "split": split,
+              "attributes": np.zeros((n, 40), np.int32),
+              "img_to_first_phr": np.arange(n, dtype=np.int32),
+              "img_to_last_phr": np.arange(n, dtype=np.int32)}
+    words = [f"w{i}" for i in range(ALEX_VOCAB)]
+    info = {"token_to_idx": {w: i + 1 for i, w in enumerate(words)},
+            "idx_to_token": {str(i + 1): w for i, w in enumerate(words)}}
+    return arrays, info
+
+
+def alexcap_train(dev, roi, out_dir: Path, card=""):
+    """Phase 17: `train_LSTM`'s step at full width (get_lstm_config: batch
+    12, bf16 trunk over fp32 masters, Adam in the encoder and head groups,
+    clip 1.0) over the synthetic split staged on the card, fed index
+    batches (the resident store, whose batches must equal the streaming
+    path's); ALEX_WARMUP + ALEX_STEPS event-timed steps in the frozen phase
+    (the trunk in eval mode, no gradient), then as many in the finetune
+    phase (BatchNorm on batch statistics, trunk gradients): images/s, the
+    median busy ms of PROFILED_CALLS profiled steps, idle share, kernels a
+    step and peak memory each; then a checkpoint (model with BatchNorm's
+    buffers, optimizer, generator, step, iterators) restored bitwise."""
+    from functools import partial
+
+    from imagecaptioning_tpu_torch.data import device_store
+    from imagecaptioning_tpu_torch.data.loader import AlexDataLoader
+    from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
+    from imagecaptioning_tpu_torch.models.captioners import build_model
+    from imagecaptioning_tpu_torch.train import optim
+    from imagecaptioning_tpu_torch.train.step import make_train_step
+    from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
+    from imagecaptioning_tpu_torch.utils.weights import seeded_init_
+
+    cfg = alexcap_cfg()
+    bs = cfg.batch_size
+    arrays, info = alexcap_data()
+    loader = AlexDataLoader(arrays=arrays, info=info, seed=cfg.seed)
+    twin = AlexDataLoader(arrays=arrays, info=info, seed=cfg.seed)
+    store = device_store.stage_split(loader, 0, dev)
+    feed = device_store.index_stream(loader, 0, bs, iterate=cfg.iterate)
+    stream = (b for _ in iter(int, 1)
+              for b in twin.epoch_batches(0, bs, shuffle=not cfg.iterate))
+    same_batches = True
+    for _ in range(2 * (len(loader.split_ix[0]) // bs) + 1):   # > 2 epochs
+        images, labels = device_store.gather_batch(
+            store, torch.from_numpy(next(feed)).to(dev))
+        want_images, want_labels = next(stream)
+        same_batches &= (np.array_equal(images.cpu().numpy(), want_images)
+                         and np.array_equal(labels.cpu().numpy(),
+                                            want_labels))
+    if not same_batches:
+        raise AssertionError("the resident store's batches differ from the "
+                             "streaming path's")
+
+    def build():
+        m = build_model(cfg, ALEX_VOCAB, ALEX_SEQ, device=dev)
+        return m, optim.make_optimizer(cfg, m, 1000)
+    model, opt = build()
+    seeded_init_(model, SEED)
+    gen = torch.Generator(dev)
+    gen.manual_seed(SEED + 1)
+    step = make_train_step(model, opt, gen,
+                           partial(resnet_v2_preprocess, dtype=torch.bfloat16),
+                           clip_norm=cfg.grad_clip_norm)
+    losses = []
+
+    def run(k):
+        for _ in range(k):
+            idx = torch.from_numpy(next(feed)).to(dev)
+            losses.append(step(*device_store.gather_batch(store, idx))["loss"])
+    trunk_w = model.features[4][0].conv1.weight
+    w0 = trunk_w.detach().clone()
+    phases = {}
+    for name, frozen in (("frozen", True), ("finetune", False)):
+        model.freeze_encoder = frozen
+        run(ALEX_WARMUP)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for r in ROI_WRAPPERS:
+            getattr(roi, r).launches = 0
+        ms = cuda_ms(lambda: run(1), iters=ALEX_STEPS, warmup=0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches = {r: getattr(roi, r).launches for r in ROI_WRAPPERS}
+        if any(launches.values()):
+            raise AssertionError(f"ROI kernels launched on the AlexCap "
+                                 f"path: {launches}")
+        p = profiled(lambda: run(1), out_dir,
+                     f"chip_smoke_alexcap_{name}_train_profile.txt")
+        p["device_idle_share_of_timed_step"] = 1 - p["device_busy_ms"] / ms
+        moved = not torch.equal(trunk_w, w0)
+        enc_state = any(q in opt.state for q in model.features.parameters())
+        if moved == frozen or enc_state == frozen:
+            raise AssertionError(f"{name} phase: trunk moved {moved}, its "
+                                 f"Adam state {enc_state}")
+        phases[name] = {"step_ms": ms, "images_per_s": bs / ms * 1e3,
+                        "peak_mem_gb": peak, "profiled_step": p,
+                        "trunk_moved": moved, "roi_launches": launches}
+    loss_values = [float(v) for v in losses]
+    if not all(np.isfinite(loss_values)):
+        raise AssertionError(f"non-finite AlexCap loss: {loss_values}")
+
+    path = out_dir / "chip_smoke_alexcap.ckpt"
+    done = len(losses)
+    state = {"model": model.state_dict(), "optimizer": opt.state_dict(),
+             "step": done, "generator": gen.get_state(),
+             "iterators": dict(loader.iterators)}
+    t1 = time.perf_counter()
+    ckptlib.save_checkpoint(str(path), state)
+    save_s = time.perf_counter() - t1
+    ckpt_gb = path.stat().st_size / 1e9
+    restored = ckptlib.restore_checkpoint(str(path), torch.device("cpu"))
+    path.unlink()
+    model2, opt2 = build()
+    model2.load_state_dict(restored["model"])
+    opt2.load_state_dict(restored["optimizer"])
+    gen2 = torch.Generator(dev)
+    gen2.set_state(restored["generator"])
+    round_trip = (restored["step"] == done
+                  and restored["iterators"] == dict(loader.iterators)
+                  and same_state(model.state_dict(), model2.state_dict())
+                  and same_state(opt.state_dict(), opt2.state_dict())
+                  and torch.equal(gen.get_state(), gen2.get_state()))
+    if not round_trip:
+        raise AssertionError("the restored AlexCap checkpoint differs")
+    del model2, opt2
+    res = {"card": card, "batch": bs,
+           "images": f"{bs} x {ALEX_HW[0]}x{ALEX_HW[1]} uint8 a step, "
+                     f"{len(loader.split_ix[0])} staged on the card "
+                     f"({store.nbytes / 2**20:.1f} MiB), vocab {ALEX_VOCAB}",
+           "resident_batches_equal_streaming": same_batches,
+           **phases, "loss_per_step": loss_values,
+           "checkpoint": {"gb": ckpt_gb, "save_s": save_s,
+                          "round_trip_bitwise": round_trip}}
+    print(f"AlexCap training: {json.dumps(res)}", flush=True)
+    return res
+
+
+def alexcap_step_grads(dev, state=None, dtype=torch.float32, perturb=0.0):
+    """One finetune step of the AlexCap model at full width in `dtype`
+    (fp32 or fp64: weights, statistics, preprocess, trunk, head and loss)
+    on `dev` from seed 0's weights (or `state`) on 2 uint8 CelebA-size
+    images, their preprocessed pixels moved by `perturb` relative noise →
+    (weights before as a CPU state dict, the model after, the loss, {name:
+    the gradient before the update, on the CPU})."""
+    from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
+    from imagecaptioning_tpu_torch.models.captioners import build_model
+    from imagecaptioning_tpu_torch.train import optim
+    from imagecaptioning_tpu_torch.train.step import make_train_step
+    from imagecaptioning_tpu_torch.utils.weights import seeded_init_
+
+    cfg = alexcap_cfg(compute_dtype="float32")
+    rng = np.random.RandomState(SEED + 19)
+    images = torch.from_numpy(rng.randint(0, 256, (2, *ALEX_HW, 3),
+                                          dtype=np.uint8))
+    labels = torch.from_numpy(rng.randint(1, ALEX_VOCAB + 1, (2, ALEX_SEQ)))
+    labels[1, 9:] = 0
+    noise = torch.from_numpy(rng.randn(2, 224, 224, 3)).to(dtype)
+    model = build_model(cfg, ALEX_VOCAB, ALEX_SEQ, device=dev)
+    if state is None:
+        seeded_init_(model, SEED)
+        state = {k: v.detach().cpu().clone()
+                 for k, v in model.state_dict().items()}
+    else:
+        model.load_state_dict(state)
+    model.to(dtype)
+    model.features.compute_dtype = dtype
+    opt = optim.make_optimizer(cfg, model, 10)
+    grads = {}
+    opt.register_step_pre_hook(lambda *_: grads.update(
+        {n: p.grad.detach().cpu().clone()
+         for n, p in model.named_parameters() if p.grad is not None}))
+
+    def preprocess(u8):
+        x = resnet_v2_preprocess(u8, dtype=dtype)
+        return x * (1 + perturb * noise.to(u8.device))
+    step = make_train_step(model, opt, torch.Generator(dev).manual_seed(SEED),
+                           preprocess, clip_norm=cfg.grad_clip_norm)
+    out = step(images.to(dev), labels.to(dev))
+    return state, model, float(out["loss"]), grads
+
+
+def step_agreement(got, want, lr) -> dict:
+    """Two AlexCap steps' (`alexcap_step_grads`) loss, gradients,
+    BatchNorm statistics and weights against each other."""
+    _, got_model, got_loss, got_grads = got
+    _, want_model, want_loss, want_grads = want
+    agree = grad_agreement(got_grads, want_grads)
+    got_sd, want_sd = got_model.state_dict(), want_model.state_dict()
+    worst, worst_name = 0.0, ""
+    want_params = dict(want_model.named_parameters())
+    for name, p in got_model.named_parameters():
+        d = float((p.detach().cpu() - want_params[name].detach()).abs().max())
+        if d > worst:
+            worst, worst_name = d, name
+    top = sorted(agree, key=lambda n: -agree[n][1] - agree[n][0])[:4]
+    return {"loss": [got_loss, want_loss],
+            "loss_rel_err": abs(got_loss - want_loss) / abs(want_loss),
+            "grads_compared": len(agree),
+            "grads_all": sorted(got_grads) == sorted(want_grads) == sorted(
+                n for n, _ in want_model.named_parameters()),
+            "grad_share_over_tol_max": max(o for _, o in agree.values()),
+            "grad_rel_err_max": max(e for e, _ in agree.values()),
+            "grad_worst_by_tensor": {n: agree[n] for n in top},
+            "bn_running_stats_max_abs_err": max(
+                float((got_sd[k].cpu() - v).abs().max())
+                for k, v in want_sd.items()
+                if k.endswith(("running_mean", "running_var"))),
+            "param_max_abs_diff": worst, "param_max_abs_diff_at": worst_name,
+            "params_within_2lr": worst <= 2 * lr + 1e-7}
+
+
+def distance_to_fp64(run, f64) -> dict:
+    """Per tensor, an AlexCap step's (`alexcap_step_grads`) distance from
+    the fp64 step: ‖g − g64‖ / ‖g64‖ for each gradient and ‖s − s64‖∞ /
+    max(‖s64‖∞, 1) for each BatchNorm running statistic after the step."""
+    _, model, _, grads = run
+    _, model64, _, grads64 = f64
+    out = {}
+    for name, want in grads64.items():
+        out[name] = float((grads[name].double() - want).norm()
+                          / want.norm().clamp_min(1e-30))
+    sd = model.state_dict()
+    for name, want in model64.state_dict().items():
+        if name.endswith(("running_mean", "running_var")):
+            want = want.cpu()
+            out[name] = float((sd[name].cpu().double() - want).abs().max()
+                              / max(float(want.abs().max()), 1.0))
+    return out
+
+
+def fp32_bound(card32, cpu32, moved32, f64) -> dict:
+    """Phase 18's fp32 gate: every gradient and BatchNorm statistic of the
+    card's fp32 step within FP32_K times the CPU fp32 step's distance from
+    the CPU fp64 step, plus FP32_FLOOR. The CPU's fp32 step with its pixels
+    moved (`moved32`) is held to the same bound, as a correct fp32 run the
+    bound must admit."""
+    d_card, d_cpu, d_moved = (distance_to_fp64(r, f64)
+                              for r in (card32, cpu32, moved32))
+    ratio = {n: (d_card[n] - FP32_FLOOR) / d_cpu[n] if d_cpu[n] else 0.0
+             for n in d_cpu}
+    ratio_moved = {n: (d_moved[n] - FP32_FLOOR) / d_cpu[n] if d_cpu[n]
+                   else 0.0 for n in d_cpu}
+    def over(d):
+        return sorted(n for n in d_cpu
+                      if not d[n] <= FP32_K * d_cpu[n] + FP32_FLOOR)
+    top = sorted(ratio, key=lambda n: -ratio[n])[:4]
+    return {"tensors": len(d_cpu), "over_bound": over(d_card),
+            "over_bound_cpu_pixels_moved": over(d_moved),
+            "ratio_max": max(ratio.values()),
+            "ratio_max_cpu_pixels_moved": max(ratio_moved.values()),
+            "worst": {n: {"card": d_card[n], "cpu_fp32": d_cpu[n]}
+                      for n in top},
+            "cpu_fp32_distance_max": max(d_cpu.values()),
+            "cpu_fp32_distance_head_max": max(
+                d for n, d in d_cpu.items() if n.startswith("llm.")),
+            "cpu_fp32_distance_median": float(np.median(list(
+                d_cpu.values())))}
+
+
+def alexcap_step_check(dev, card=""):
+    """Phase 18: one finetune step (BatchNorm on batch statistics) at full
+    width on the card against the CPU, from the same weights and batch.
+    - fp32: the loss within ALEX_LOSS_TOL relative, every weight within
+      2·lr, and every gradient and BatchNorm statistic within `fp32_bound`
+      of the CPU's fp64 step. A seeded ResNet-101 in training mode
+      amplifies a change of 1e-7 (fp32 rounding, another summation order,
+      or the pixels moved by that much, which is reported) into
+      whole-percent gradient differences, so no two fp32 implementations
+      meet a 1e-4 gradient bound against each other there; their
+      distances from fp64 stay of one order, and a wrong backward's does
+      not.
+    - fp64, the same step: the loss within ALEX_LOSS_TOL relative; each
+      gradient before the update within GRAD_REL_TOL relative in all but
+      GRAD_SHARE_TOL of each tensor's elements (as phases 9, 11 and 14);
+      BatchNorm's running statistics within BN_TOL; every weight within
+      2·lr. At fp64 the amplified rounding stays far below these bounds,
+      and a wrong backward does not."""
+    lr = alexcap_cfg().learning_rate
+    cpu = torch.device("cpu")
+    res = {"card": card,
+           "tolerance": f"fp32: loss {ALEX_LOSS_TOL} relative, params "
+                        f"within 2 lr = {2 * lr}; fp64: the same, each "
+                        f"gradient {GRAD_REL_TOL} relative in all but "
+                        f"{GRAD_SHARE_TOL} of each tensor's elements, "
+                        f"BatchNorm statistics {BN_TOL}; fp32 gradients "
+                        f"and BatchNorm statistics against the CPU's fp64 "
+                        f"within {FP32_K} x the CPU fp32's distance + "
+                        f"{FP32_FLOOR} relative"}
+    f32 = alexcap_step_grads(cpu)
+    card32 = alexcap_step_grads(dev, f32[0])
+    moved32 = alexcap_step_grads(cpu, f32[0], perturb=1e-7)
+    res["fp32"] = step_agreement(card32, f32, lr)
+    res["fp32_cpu_vs_cpu_pixels_moved_1e-7"] = step_agreement(moved32, f32,
+                                                              lr)
+    f64 = alexcap_step_grads(cpu, f32[0], dtype=torch.float64)
+    res["fp32_vs_cpu_fp64"] = fp32_bound(card32, f32, moved32, f64)
+    del card32, moved32
+    res["fp64"] = step_agreement(
+        alexcap_step_grads(dev, f32[0], dtype=torch.float64), f64, lr)
+    print(f"AlexCap train step (card vs CPU, full width): "
+          f"{json.dumps(res)}", flush=True)
+    a, b = res["fp32"], res["fp64"]
+    if not (a["loss_rel_err"] <= ALEX_LOSS_TOL and a["grads_all"]
+            and a["params_within_2lr"]
+            and not res["fp32_vs_cpu_fp64"]["over_bound"]
+            and not res["fp32_vs_cpu_fp64"]["over_bound_cpu_pixels_moved"]
+            and b["loss_rel_err"] <= ALEX_LOSS_TOL
+            and b["grads_all"]
+            and b["grad_share_over_tol_max"] <= GRAD_SHARE_TOL
+            and b["bn_running_stats_max_abs_err"] <= BN_TOL
+            and b["params_within_2lr"]):
+        raise AssertionError(f"AlexCap card train step differs from the "
+                             f"CPU's: {res}")
     return res
 
 
@@ -1452,6 +1939,15 @@ def main() -> int:
         dev, roi, N_IMAGES, N_REGIONS, IMAGE // 32, 512, IMAGE, 200, flush)
     add_cupti(train_bwd, train_bwd_calls, 200, flush)
     add_cupti(serve_bwd, serve_bwd_calls, 200, flush)
+    # outputs beyond the staged kernels' 32 a side and 256 cells: the
+    # general kernels, at the GT training shape
+    general_bwd = {}
+    for out_hw in GENERAL_BWD_SHAPES:
+        cases, _ = check_roi_backward(
+            dev, roi, TRAIN_BATCH, N_REGIONS, TRAIN_IMAGE // 32, 512,
+            TRAIN_IMAGE, 20, flush, out_hw)
+        general_bwd.update({f"{case} {out_hw[0]}x{out_hw[1]}": v
+                            for case, v in cases.items()})
     trained = train(dev, roi, args.out_dir, card=smi)
     step_check = train_step_check(dev, card=smi)
     # phase 11: the transformer head's training
@@ -1492,6 +1988,16 @@ def main() -> int:
                            args.out_dir, card=smi)
     rpn_ref = rpn_reference_check(dev, build_rpn, card=smi)
 
+    # phases 16-18: the AlexCap LSTM captioner (ResNet-101, get_lstm_config)
+    alex_served, alex_model = alexcap_serve(dev, roi, args.out_dir, card=smi)
+    alex_ref = alexcap_reference_check(dev, alex_model, card=smi)
+    del alex_model
+    alex_trained = alexcap_train(dev, roi, args.out_dir, card=smi)
+    alex_step = alexcap_step_check(dev, card=smi)
+    alexcap_paths = {"alexcap_serving": alex_served["roi_launches"],
+                     "alexcap_training": alex_trained["finetune"][
+                         "roi_launches"]}
+
     # the serving path's kernel: the fused entry, bf16 map → bf16 codes
     main_case = slice_roi["roi_align_batch_chw bf16->bf16 CHW"]
     # launches over every path that runs the kernel: both GT heads'
@@ -1526,7 +2032,9 @@ def main() -> int:
                          "(roi_align_pallas_fwd): the same kernel's NHWC "
                          "entry roi_align_batch, and roi_align at N=1",
         "launches_by_path": {"serving": serving, "training": training,
-                             **rpn_paths},
+                             **rpn_paths,
+                             **{k: v["roi_align_batch_chw"]
+                                for k, v in alexcap_paths.items()}},
         "rpn_shape": rpn_roi["roi_align_batch_chw"],
         "entries": {"serving_shape": slice_roi, "n1_canvas": canvas_roi},
     }
@@ -1546,14 +2054,17 @@ def main() -> int:
             "launches_by_path": {"training": {k: v[name] for k, v in
                                               training.items()},
                                  "rpn_training": rpn_trained["launches"][
-                                     name]},
+                                     name],
+                                 **{k: v[name]
+                                    for k, v in alexcap_paths.items()}},
             "main_path": ("GT training with either head and RPN training, "
                           "once a step" if name == "roi_align_bwd_features"
                           else "RPN training, once a step (the sampled "
                           "proposals' gradient; GT boxes are data)"),
             "max_abs_err": max(rpn_roi[name]["max_abs_err"],
                                *(v["max_abs_err"] for k, v in
-                                 {**train_bwd, **serve_bwd}.items()
+                                 {**train_bwd, **serve_bwd,
+                                  **general_bwd}.items()
                                  if k.startswith(name + " "))),
             "tolerance": main_bwd["tolerance"],
             "deterministic": True,
@@ -1569,7 +2080,10 @@ def main() -> int:
                 "training_shape": {k: v for k, v in train_bwd.items()
                                    if k.startswith(name + " ")},
                 "serving_shape": {k: v for k, v in serve_bwd.items()
-                                  if k.startswith(name + " ")}},
+                                  if k.startswith(name + " ")},
+                "general_kernel_shapes": {k: v for k, v in
+                                          general_bwd.items()
+                                          if k.startswith(name + " ")}},
         })
     summary = {"card": smi, "serving": served, "profile": prof,
                "reference_check": ref, "training": trained,
@@ -1581,6 +2095,10 @@ def main() -> int:
                "rpn": {"roi_kernels": rpn_roi, "training": rpn_trained,
                        "train_step_check": rpn_step_check,
                        "serving": rpn_served, "reference_check": rpn_ref},
+               "alexcap": {"serving": alex_served,
+                           "reference_check": alex_ref,
+                           "training": alex_trained,
+                           "train_step_check": alex_step},
                "seconds": time.perf_counter() - t_start}
     print(f"summary: {json.dumps(summary)}")
     print(smi)

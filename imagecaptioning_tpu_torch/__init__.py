@@ -8,25 +8,31 @@ it on the same inputs. This package imports `torch`, `numpy` and
 Ported so far: the ground-truth-box dense captioner with both caption
 heads (the transformer head of the reference's default GT config, and
 the LSTM head), serving (VGG16 trunk → hand-written CUDA ROI-pooling
-kernel → VGG classifier head → caption head → greedy/beam region
-decode, driven by
-``python -m imagecaptioning_tpu_torch.infer --model-type gt``) and
-training (the ROI backward as hand-written CUDA kernels, driven by
-``python -m imagecaptioning_tpu_torch.traingt``).
+kernel → VGG classifier head → caption head → greedy/beam region decode,
+driven by ``python -m imagecaptioning_tpu_torch.infer --model-type gt``)
+and training (the ROI backward as hand-written CUDA kernels, driven by
+``python -m imagecaptioning_tpu_torch.traingt``); the RPN DenseCap model
+(``train_DenseCap``); and the AlexCap LSTM captioner on ResNet-101
+(``train_LSTM``, ``infer --model-type lstm``).
 
 Layout
 ------
-- ``config``    `DenseConfig` (copy of the JAX package's dense config)
-- ``data``      vocab and tokenizer, the VG loader and ImageNet
-                normalization, synthetic VG data, image processing
+- ``config``    `DenseConfig` and `CaptionConfig` (copies of the JAX
+                package's configs)
+- ``data``      vocab and tokenizer, the VG and Face2Text loaders, the
+                device-resident store, ImageNet normalization and the
+                ResNet preprocess, synthetic data, image processing
 - ``ops``       tokens, loss, LSTM, the reference-math transformer, ROI
                 pooling forward and backward (+ their CUDA kernels in
                 ``csrc``)
-- ``models``    VGG16, the LSTM caption head, the GT dense captioner
-                (with its transformer head),
-                fixed-shape greedy/beam decoding and the region decode API
-- ``train``     the GT training driver (optimizer groups, train step)
-- ``eval``      the GT mAP/METEOR evaluator and its eval loop
+- ``models``    VGG16, ResNet, the LSTM caption head, the GT dense
+                captioner (with its transformer head), the RPN model, the
+                AlexCap LSTM captioner, fixed-shape greedy/beam decoding
+                and the decode API
+- ``train``     the dense drivers and the AlexCap driver (optimizers,
+                train steps, CLI)
+- ``eval``      the dense mAP/METEOR evaluators, the AlexCap scorer
+                (METEOR, BLEU, BLEU-4, CIDEr-D) and their eval loops
 - ``utils``     device resolution, weights and training state carried
                 over from the JAX tree, checkpoints, JSON histories
 """

@@ -64,6 +64,21 @@
 //   caller's), and a second launch, one block of 64 threads a box, sums
 //   each box's chunks in chunk order and applies the chain rule.
 //
+// Outputs larger than the staged kernels take (more than 32 rows or columns,
+// or more than 256 cells: a slab would not fit in shared memory) go, by
+// shape, to two simple general kernels, never on failure:
+// - kernel A, general: one thread per d_F element, looping over the boxes,
+//   their output rows and columns in the plain gather's order (per box and
+//   row, the sum over columns first, then Ry times it), reading g from
+//   device memory;
+// - kernel B, general: a block per (64-channel chunk, box), warp w taking
+//   the box's output rows and then its columns w, w + 8, ..., each lane its
+//   two channels, reduced over lanes by a shuffle tree, into the same
+//   scratch buffer; its finish pass loops over oh + ow in one thread per
+//   axis.
+// Every path at 7x7 (the models' only output size) takes the staged
+// kernels.
+//
 // Interface: plain C entry points (bound with ctypes). They launch on the
 // caller's stream, allocate nothing, do not synchronise, and return
 // cudaGetLastError() (or the shared-memory opt-in's error) so a refused
@@ -546,6 +561,157 @@ roi_bwd_boxes_finish(const float* __restrict__ partial,
   }
 }
 
+// The staged kernels' limits: a slab of at most 256 cells, and at most 32
+// output rows and columns (one bit each in a 32-bit mask).
+__host__ __device__ constexpr bool staged_shape(int oh, int ow) {
+  return oh <= 32 && ow <= 32 && oh * ow <= 256;
+}
+
+// The weight of output index j's taps on pixel `p` along one axis (0 when
+// neither tap is p).
+__device__ __forceinline__ float tap_weight(const Tap& t, int p) {
+  return t.w_lo != 0.0f && t.lo == p   ? t.w_lo
+         : t.w_hi != 0.0f && t.hi == p ? t.w_hi
+                                       : 0.0f;
+}
+
+// Kernel A, general. Thread i (grid-stride): d_F element (n, h, w, c) =
+// sum over boxes r, in order, of sum over rows y, in order, of
+// Ry[y, h] * (sum over columns x, in order, of Cx[x, w] * g[r, y, x, c]).
+template <typename GT, typename FT, bool kChw>
+__global__ void __launch_bounds__(kThreads)
+roi_bwd_features_general(const GT* __restrict__ grad,
+                         const float* __restrict__ boxes,
+                         FT* __restrict__ dF, int N, int R, int Hf, int Wf,
+                         int C, int oh, int ow, float ih, float iw) {
+  const long long total = static_cast<long long>(N) * Hf * Wf * C;
+  const long long ohw = static_cast<long long>(oh) * ow;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int c = static_cast<int>(i % C);
+    const int w = static_cast<int>(i / C % Wf);
+    const int h = static_cast<int>(i / C / Wf % Hf);
+    const int n = static_cast<int>(i / C / Wf / Hf);
+    float acc = 0.0f;
+    for (int r = 0; r < R; ++r) {
+      const float* box = boxes + (static_cast<long long>(n) * R + r) * 4;
+      const GT* g = grad + (static_cast<long long>(n) * R + r) * ohw * C;
+      for (int y = 0; y < oh; ++y) {
+        const float wy =
+            tap_weight(axis_taps(box[1], box[3], y, oh, Hf, ih, 1), h);
+        if (wy == 0.0f) continue;
+        float inner = 0.0f;
+        for (int x = 0; x < ow; ++x) {
+          const float wx =
+              tap_weight(axis_taps(box[0], box[2], x, ow, Wf, iw, 1), w);
+          if (wx == 0.0f) continue;
+          const long long at = kChw ? c * ohw + y * ow + x
+                                    : (y * static_cast<long long>(ow) + x) * C + c;
+          inner = fmaf(wx, widen(g[at]), inner);
+        }
+        acc = fmaf(wy, inner, acc);
+      }
+    }
+    dF[i] = narrow<FT>(acc);
+  }
+}
+
+// Kernel B, general, first pass. Block (i, r, n): channels [64 i, 64 i + 64)
+// of box r of image n → partial[(n R + r) chunks + i][0, oh + ow), as the
+// staged kernel writes it. Warp w takes the box's axis indices j = w, w + 8,
+// ... of the oh rows, then the ow columns; lane l channels l and l + 32.
+template <typename GT, typename T, bool kChw>
+__global__ void __launch_bounds__(kBoxThreads)
+roi_bwd_boxes_general(const T* __restrict__ feat,
+                      const float* __restrict__ boxes,
+                      const GT* __restrict__ grad, float* __restrict__ partial,
+                      int R, int Hf, int Wf, int C, int oh, int ow, float ih,
+                      float iw) {
+  const int chunk = blockIdx.x, chunks = gridDim.x;
+  const long long box = static_cast<long long>(blockIdx.z) * R + blockIdx.y;
+  const int c0 = chunk * kBoxChan;
+  const int kc = min(kBoxChan, C - c0);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const long long ohw = static_cast<long long>(oh) * ow;
+  const float* b = boxes + box * 4;
+  const T* f = feat + static_cast<long long>(blockIdx.z) * Hf * Wf * C + c0;
+  const GT* g = grad + box * ohw * C;
+  float* out = partial + (box * chunks + chunk) * (oh + ow);
+  for (int j = warp; j < oh + ow; j += kBoxWarps) {
+    const bool row = j < oh;
+    // the fixed axis index, and the other axis walked over in order
+    const int fixed = row ? j : j - oh;
+    const int walk = row ? ow : oh;
+    float sum = 0.0f;
+    for (int v = 0; v < walk; ++v) {
+      const int y = row ? fixed : v, x = row ? v : fixed;
+      const AxisSample sy = axis_sample(b[1], b[3], y, oh, Hf, ih);
+      const AxisSample sx = axis_sample(b[0], b[2], x, ow, Wf, iw);
+      const int y0 = static_cast<int>(sy.p0), x0 = static_cast<int>(sx.p0);
+      const float wy_lo = sy.lo_ok ? 1.0f - sy.frac : 0.0f;
+      const float wy_hi = sy.hi_ok ? sy.frac : 0.0f;
+      const float wx_lo = sx.lo_ok ? 1.0f - sx.frac : 0.0f;
+      const float wx_hi = sx.hi_ok ? sx.frac : 0.0f;
+#pragma unroll
+      for (int q = 0; q < kBoxChan / 32; ++q) {
+        const int k = lane + 32 * q;
+        if (k >= kc) break;
+        const float f00 = sy.lo_ok && sx.lo_ok
+                              ? widen(f[(y0 * Wf + x0) * C + k]) : 0.0f;
+        const float f01 = sy.lo_ok && sx.hi_ok
+                              ? widen(f[(y0 * Wf + x0 + 1) * C + k]) : 0.0f;
+        const float f10 = sy.hi_ok && sx.lo_ok
+                              ? widen(f[((y0 + 1) * Wf + x0) * C + k]) : 0.0f;
+        const float f11 = sy.hi_ok && sx.hi_ok
+                              ? widen(f[((y0 + 1) * Wf + x0 + 1) * C + k])
+                              : 0.0f;
+        const long long at = kChw ? (c0 + k) * ohw + y * ow + x
+                                  : (y * static_cast<long long>(ow) + x) * C +
+                                        c0 + k;
+        const float gv = widen(g[at]);
+        // rows: d out / d frac_y; columns: d out / d frac_x
+        sum = fmaf(gv,
+                   row ? wx_lo * (f10 - f00) + wx_hi * (f11 - f01)
+                       : wy_lo * (f01 - f00) + wy_hi * (f11 - f10),
+                   sum);
+      }
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) out[j] = sum;
+  }
+}
+
+// Kernel B, general, second pass. Block `box` (32 threads): thread 0 takes
+// the rows → (yc, h), thread 1 the columns → (xc, w); each sums its axis
+// indices' partial sums over the chunks in chunk order and applies the
+// chain rule as `roi_bwd_boxes_finish` does.
+__global__ void roi_bwd_boxes_finish_general(
+    const float* __restrict__ partial, const float* __restrict__ boxes,
+    float* __restrict__ d_boxes, int chunks, int Hf, int Wf, int oh, int ow,
+    float ih, float iw) {
+  const long long box = blockIdx.x;
+  const int t = threadIdx.x;
+  if (t >= 2) return;
+  const bool row = t == 0;
+  const float* b = boxes + box * 4;
+  const int in = row ? Hf : Wf, first = row ? 0 : oh, out = row ? oh : ow;
+  const float image = row ? ih : iw;
+  const float* p = partial + box * chunks * (oh + ow);
+  float d_t = 0.0f, d_s = 0.0f;
+  for (int j = first; j < first + out; ++j) {
+    float total = 0.0f;
+    for (int k = 0; k < chunks; ++k) total += p[k * (oh + ow) + j];
+    const float du = total * 0.5f * static_cast<float>(in);
+    const float gj = axis_sample(row ? b[1] : b[0], row ? b[3] : b[2],
+                                 j - first, out, in, image).g;
+    d_t += du;
+    d_s = fmaf(du, gj, d_s);
+  }
+  d_boxes[box * 4 + (row ? 1 : 0)] = __fdiv_rn(d_t, image - 1.0f) * 2.0f;
+  d_boxes[box * 4 + (row ? 3 : 2)] = __fdiv_rn(d_s, image);
+}
+
 // Allow `kernel` `bytes` of dynamic shared memory beside its static arrays
 // (above 48 KB in all only after an opt-in) → a CUDA error code.
 template <typename Kernel>
@@ -572,9 +738,20 @@ template <typename GT, typename FT, bool kChw>
 int launch_features(const void* grad, const void* boxes, void* dF, int n,
                     int r, int hf, int wf, int c, int oh, int ow, float ih,
                     float iw, cudaStream_t stream) {
+  if (!staged_shape(oh, ow)) {
+    const long long total = static_cast<long long>(n) * hf * wf * c;
+    const long long blocks = (total + kThreads - 1) / kThreads;
+    roi_bwd_features_general<GT, FT, kChw>
+        <<<static_cast<unsigned>(blocks < 1 << 20 ? blocks : 1 << 20),
+           kThreads, 0, stream>>>(static_cast<const GT*>(grad),
+                                  static_cast<const float*>(boxes),
+                                  static_cast<FT*>(dF), n, r, hf, wf, c, oh,
+                                  ow, ih, iw);
+    return static_cast<int>(cudaGetLastError());
+  }
   const long long tiles = static_cast<long long>((hf + kBand - 1) / kBand) *
                           ((wf + kCols - 1) / kCols);
-  if (oh > 32 || ow > 32 || tiles > kMaxGrid || n > kMaxGrid)
+  if (tiles > kMaxGrid || n > kMaxGrid)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = roi_bwd_features_kernel<GT, FT, kChw>;
   const int smem = features_smem<GT>(oh, ow);
@@ -592,13 +769,28 @@ int launch_boxes(const void* feat, const void* boxes, const void* grad,
                  void* d_boxes, void* scratch, int n, int r, int hf, int wf,
                  int c, int oh, int ow, float ih, float iw,
                  cudaStream_t stream) {
-  if (oh + ow > kFinishThreads || r > kMaxGrid || n > kMaxGrid)
+  if (r > kMaxGrid || n > kMaxGrid)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (c + kBoxChan - 1) / kBoxChan;
+  if (!staged_shape(oh, ow)) {
+    if (chunks > 0) {
+      roi_bwd_boxes_general<GT, T, kChw>
+          <<<dim3(chunks, r, n), kBoxThreads, 0, stream>>>(
+              static_cast<const T*>(feat), static_cast<const float*>(boxes),
+              static_cast<const GT*>(grad), static_cast<float*>(scratch), r,
+              hf, wf, c, oh, ow, ih, iw);
+      if (const cudaError_t err = cudaGetLastError())
+        return static_cast<int>(err);
+    }
+    roi_bwd_boxes_finish_general<<<n * r, 32, 0, stream>>>(
+        static_cast<const float*>(scratch), static_cast<const float*>(boxes),
+        static_cast<float*>(d_boxes), chunks, hf, wf, oh, ow, ih, iw);
+    return static_cast<int>(cudaGetLastError());
+  }
   const auto kernel = roi_bwd_boxes_kernel<GT, T, kChw>;
   const int smem = boxes_smem<GT>(oh, ow);
   if (const int err = allow_smem(kernel, smem)) return err;
   // no channels: no partial sums, and the second pass writes zeros
-  const int chunks = (c + kBoxChan - 1) / kBoxChan;
   if (chunks > 0) {
     kernel<<<dim3(chunks, r, n), kBoxThreads, smem, stream>>>(
         static_cast<const T*>(feat), static_cast<const float*>(boxes),
@@ -645,7 +837,8 @@ struct Boxes {
 
 // grad (n, r, oh, ow, c) NHWC or (n, r, c * oh * ow) CHW (grad_chw), fp32 or
 // bf16 (grad_bf16); boxes (n, r, 4) fp32 -> d_features (n, hf, wf, c), fp32
-// or bf16 (out_bf16). oh and ow at most 32.
+// or bf16 (out_bf16). Any oh and ow: beyond the staged kernel's limits the
+// general kernel runs.
 extern "C" int roi_align_bwd_features(const void* grad, const void* boxes,
                                       void* d_features, int n, int r, int hf,
                                       int wf, int c, int oh, int ow, float ih,

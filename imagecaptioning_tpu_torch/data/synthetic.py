@@ -1,9 +1,16 @@
-"""Deterministic synthetic Visual-Genome-style data (copy of
-`synthetic_captions` and `make_vg_arrays` in
-`imagecaptioning_tpu/data/synthetic.py:30-38, 249-303`), so the training
-path runs end to end without a Visual Genome download. The same
-`np.random.RandomState` stream as the JAX package, so the arrays are
-byte-equal to its own.
+"""Deterministic synthetic data with the reference preprocessors' HDF5
+schemas (copy of `synthetic_captions`, `make_face2text_arrays` and
+`make_vg_arrays` in `imagecaptioning_tpu/data/synthetic.py:30-106,
+249-303`), so the training paths run end to end without a CelebA or
+Visual Genome download. The same `np.random.RandomState` stream as the
+JAX package, so the arrays are byte-equal to its own.
+
+Face2Text schema (reference `AlexCap/my_model_preprocess.py:282-330`):
+  images (N, 218, 178, 3) u8 | labels (M, T) i32 | lengths (M,) i32 |
+  split (N,) i32 {0,1,2} | attributes (N, 40) i32 |
+  img_to_first_phr/img_to_last_phr (N,) i32 (0-indexed phrase slab)
+  dicts JSON: token_to_idx (1-indexed), idx_to_token, idx_to_filename,
+  attributes_labels.
 
 Visual Genome schema (reference `preprocess.py:363-424`):
   images (N, S, S, 3) u8 square-padded | image_heights/widths |
@@ -31,6 +38,57 @@ def synthetic_captions(rng: np.random.RandomState, n: int,
         k = rng.randint(min_len, max_len + 1)
         caps.append(" ".join(rng.choice(_WORDS) for _ in range(k)))
     return caps
+
+
+def make_face2text_arrays(num_images: int = 32,
+                          captions_per_image: int = 2,
+                          seq_length: int = 16,
+                          image_hw: Tuple[int, int] = (218, 178),
+                          seed: int = 0) -> Tuple[Dict, Dict]:
+    """Face2Text-style arrays → (h5-like dict of arrays, dicts-json dict):
+    random uint8 CelebA-size images, two captions each over a 34-word
+    pool, a ~70/15/15 split."""
+    rng = np.random.RandomState(seed)
+    m = num_images * captions_per_image
+    caps = synthetic_captions(rng, m)
+    vocab = Vocab.from_captions(caps, min_token_instances=1)
+
+    labels = np.stack([vocab.encode_caption(c, seq_length) for c in caps])
+    lengths = (labels != 0).sum(axis=1).astype(np.int32)
+
+    h, w = image_hw
+    images = rng.randint(0, 256, size=(num_images, h, w, 3), dtype=np.uint8)
+
+    # splits: ~70/15/15 like the reference's CSV-driven split codes
+    split = np.zeros(num_images, np.int32)
+    n_val = max(1, num_images * 15 // 100)
+    n_test = max(1, num_images * 15 // 100)
+    split[num_images - n_val - n_test:num_images - n_test] = 1
+    split[num_images - n_test:] = 2
+
+    attributes = rng.randint(-1, 2, size=(num_images, 40)).astype(np.int32)
+    first = np.arange(num_images, dtype=np.int32) * captions_per_image
+    last = first + captions_per_image - 1
+
+    arrays = {
+        "images": images,
+        "labels": labels.astype(np.int32),
+        "lengths": lengths,
+        "split": split,
+        "attributes": attributes,
+        "img_to_first_phr": first,
+        "img_to_last_phr": last,
+    }
+    info = {
+        "token_to_idx": vocab.token_to_idx,
+        "idx_to_token": vocab.idx_to_token,
+        "idx_to_filename": {str(i): f"synthetic_{i:06d}.jpg"
+                            for i in range(num_images)},
+        "filename_to_idx": {f"synthetic_{i:06d}.jpg": i
+                            for i in range(num_images)},
+        "attributes_labels": [f"attr_{i}" for i in range(40)],
+    }
+    return arrays, info
 
 
 def make_vg_arrays(num_images: int = 8,

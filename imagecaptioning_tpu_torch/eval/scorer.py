@@ -1,12 +1,22 @@
-"""METEOR for the dense evaluators — copy of `meteor_pair` and
-`scorer_provenance` in `imagecaptioning_tpu/eval/scorer.py:20-57`
-(NLTK's sentence METEOR, the reference's protocol). `nltk` is imported
-only when a score is asked for.
+"""Caption scoring — copy of `imagecaptioning_tpu/eval/scorer.py`.
+
+- `meteor_pair` and `scorer_provenance`: NLTK's sentence METEOR, the
+  reference's protocol, for the dense evaluators and the AlexCap one.
+- `score_captions` and `CaptioningEvaluator`: the AlexCap protocol
+  (`AlexCap/eval/eval_resnet.py:108-123`): per (candidate, references)
+  pair, `meteor_score` and `sentence_bleu(smoothing_function=method4)`,
+  averaged over the records (an empty candidate scores 0), beside the
+  corpus BLEU-4 (method1 smoothing) and CIDEr-D of the JAX package. The
+  pairs are scored in a thread pool.
+
+`nltk` is imported only when a score is asked for.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import Dict, List, Sequence
 
 _PROVENANCE_CACHE: Dict = {}
 
@@ -45,3 +55,82 @@ def meteor_pair(references_tok, candidate_tok) -> float:
     except LookupError:      # no wordnet corpus on this host
         return float(meteor_score(references_tok, candidate_tok,
                                   wordnet=_EmptyWordnet()))
+
+
+def _score_pair(candidate: str, references: Sequence[str]):
+    from nltk.translate.bleu_score import SmoothingFunction, sentence_bleu
+
+    cand_tok = candidate.split()
+    refs_tok = [r.split() for r in references]
+    if not cand_tok or not any(refs_tok):
+        return 0.0, 0.0
+    meteor = meteor_pair(refs_tok, cand_tok)
+    bleu = sentence_bleu(refs_tok, cand_tok,
+                         smoothing_function=SmoothingFunction().method4)
+    return float(meteor), float(bleu)
+
+
+def _corpus_scores(records: Sequence[Dict]) -> Dict:
+    """Corpus BLEU-4 (NLTK `corpus_bleu`, method1 smoothing) and CIDEr-D.
+    Records with an empty candidate count (scored 0, as pycocoevalcap
+    does); records with no non-empty reference are dropped."""
+    import warnings
+
+    from nltk.translate.bleu_score import SmoothingFunction, corpus_bleu
+
+    from imagecaptioning_tpu_torch.eval.cider import CiderD
+
+    cands = [r["candidate"].split() for r in records]
+    refs = [[x.split() for x in r["references"]] for r in records]
+    pairs = [(c, [r for r in rs if r]) for c, rs in zip(cands, refs)
+             if any(rs)]
+    if not pairs or not any(c for c, _ in pairs):
+        return {"bleu4": 0.0, "cider": 0.0}
+    with warnings.catch_warnings():
+        # nltk warns per empty or low-overlap hypothesis
+        warnings.simplefilter("ignore")
+        bleu4 = float(corpus_bleu(
+            [rs for _, rs in pairs], [c for c, _ in pairs],
+            smoothing_function=SmoothingFunction().method1))
+    cider = CiderD()
+    for c, rs in pairs:
+        cider.add(c, rs)
+    return {"bleu4": bleu4, "cider": cider.compute()[0]}
+
+
+def score_captions(records: Sequence[Dict], num_workers: int = 8) -> Dict:
+    """records [{'candidate': str, 'references': [str, ...]}, ...] →
+    {'meteor': mean, 'bleu': mean sentence BLEU, 'bleu4': corpus BLEU-4,
+    'cider': CIDEr-D, 'scorer': provenance}."""
+    if not records:
+        return {"meteor": 0.0, "bleu": 0.0, "bleu4": 0.0, "cider": 0.0,
+                "scorer": scorer_provenance()}
+    with ThreadPoolExecutor(max_workers=num_workers) as pool:
+        scores = list(pool.map(
+            lambda r: _score_pair(r["candidate"], r["references"]), records))
+    n = len(scores)
+    return {"meteor": sum(s[0] for s in scores) / n,
+            "bleu": sum(s[1] for s in scores) / n,
+            **_corpus_scores(records),
+            "scorer": scorer_provenance()}
+
+
+@dataclass
+class CaptioningEvaluator:
+    """Accumulates (prediction, references) records across eval batches
+    (the reference's `addResult` contract, `eval_resnet.py:14-26`)."""
+
+    records: List[Dict] = field(default_factory=list)
+
+    def add_result(self, predictions: Sequence[str],
+                   references: Sequence[Sequence[str]],
+                   ids: Sequence = ()) -> None:
+        ids = list(ids) or [None] * len(predictions)
+        for pred, refs, rid in zip(predictions, references, ids):
+            if isinstance(refs, str):
+                refs = [refs]
+            self.records.append({"candidate": pred,
+                                 "references": list(refs), "id": rid})
+
+    def evaluate(self) -> Dict:
+        return score_captions(self.records)

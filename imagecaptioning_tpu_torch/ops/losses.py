@@ -1,6 +1,10 @@
-"""Loss functions — port of `imagecaptioning_tpu/ops/losses.py` (:51-79,
+"""Loss functions — port of `imagecaptioning_tpu/ops/losses.py` (:29-79,
 131-166), behaviour-compatible with the reference's criteria:
 
+- `smoothed_cross_entropy`: the AlexCap families' criterion, torch
+  `nn.CrossEntropyLoss(ignore_index=0, label_smoothing=0.1)` over the
+  flattened logits (`AlexCap/CustomLoss.py:7-14`), written out as the JAX
+  package writes it;
 - `temporal_cross_entropy`: the GT captioner's criterion, DenseCap's
   masked gather CE (`DenseCap/densecap/LSTMLoss.py:4-26`);
 - `sum_cross_entropy`: DenseCap's `CustomCrossEntropyLoss`, the RPN's
@@ -12,8 +16,8 @@
 
 All compute in fp32 whatever the inputs' dtype. Softplus is written as
 `logaddexp(x, 0)`, which is `jax.nn.softplus`: `F.softplus` turns into
-the identity above 20. The AlexCap families' criteria come with their
-slices (ROADMAP.md, Queue 1).
+the identity above 20. The attention family's regularizer comes with its
+slice (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -25,6 +29,23 @@ import torch
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def smoothed_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                           ignore_index: int = 0,
+                           label_smoothing: float = 0.1) -> torch.Tensor:
+    """Label-smoothed CE, mean over the positions whose target is not
+    `ignore_index`: per position (1 − ε)·nll + ε·mean_c(−log p_c), in fp32
+    (fp64 for fp64 logits)."""
+    c = logits.shape[-1]
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    logp = torch.log_softmax(logits.reshape(-1, c), dim=-1)
+    t = targets.reshape(-1).long()
+    nll = -logp.gather(-1, t[:, None])[:, 0]
+    smooth = -logp.mean(dim=-1)
+    per = (1.0 - label_smoothing) * nll + label_smoothing * smooth
+    mask = (t != ignore_index).float()
+    return (per * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 def temporal_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,

@@ -337,10 +337,6 @@ def roi_align_backward_reference(features: torch.Tensor, boxes: torch.Tensor,
     return d_features, d_boxes
 
 
-# The backward kernels stage a box's gradient slab (32 or 64 channels ×
-# oh·ow) in shared memory and keep one bit per output row and column.
-_BWD_MAX_SIDE = 32
-_BWD_MAX_CELLS = 256
 _BOX_CHUNK = 64       # kernel B's channels per block
 
 
@@ -349,11 +345,6 @@ def _check_bwd(features: torch.Tensor, boxes: torch.Tensor,
     """The backward wrappers' checks, the same on every device."""
     _check(features, boxes, out_hw)
     _grad_nhwc(grad, features, boxes, out_hw)
-    oh, ow = out_hw
-    if max(oh, ow) > _BWD_MAX_SIDE or oh * ow > _BWD_MAX_CELLS:
-        raise ValueError(f"output {out_hw}: the backward kernels take at "
-                         f"most {_BWD_MAX_SIDE} rows and columns and "
-                         f"{_BWD_MAX_CELLS} cells")
 
 
 def _launch_bwd(entry: str, features: torch.Tensor, boxes: torch.Tensor,
@@ -392,10 +383,11 @@ def roi_align_bwd_features(features: torch.Tensor, boxes: torch.Tensor,
                            out_hw: Tuple[int, int] = (7, 7)) -> torch.Tensor:
     """d_features (N, Hf, Wf, C) in the features' dtype (summed in fp32,
     rounded once) from the pooling's upstream gradient `grad`, NHWC
-    (N, R, oh, ow, C) or CHW (N, R, C·oh·ow), fp32 or bf16. On a CUDA
-    tensor one launch of kernel A (`csrc/roi_align_bwd.cu`); on a CPU
-    tensor the plain backward. On every device `out_hw` is at most 32 a
-    side and 256 cells (the kernels' shared-memory staging)."""
+    (N, R, oh, ow, C) or CHW (N, R, C·oh·ow), fp32 or bf16, for any
+    `out_hw` the forward takes. On a CUDA tensor one launch of kernel A
+    (`csrc/roi_align_bwd.cu`: its staged kernel up to 32 a side and 256
+    cells, its general kernel beyond, chosen there by shape); on a CPU
+    tensor the plain backward."""
     _check_bwd(features, boxes, grad, out_hw)
     if features.device.type == "cpu":
         return roi_align_backward_reference(features, boxes, grad, image_hw,
@@ -413,11 +405,12 @@ def roi_align_bwd_boxes(features: torch.Tensor, boxes: torch.Tensor,
                         grad: torch.Tensor, image_hw: Tuple[float, float],
                         out_hw: Tuple[int, int] = (7, 7)) -> torch.Tensor:
     """d_boxes (N, R, 4) fp32 from the pooling's upstream gradient, as
-    `roi_align_bwd_features` takes it, with the same limits. On a CUDA
-    tensor kernel B (`csrc/roi_align_bwd.cu`), counted as one launch: its
-    C entry runs it as two, partial sums per (box, 64-channel chunk) into a
-    scratch buffer allocated here, then their sum in chunk order, so the
-    bits repeat without atomics. On a CPU tensor the plain backward."""
+    `roi_align_bwd_features` takes it. On a CUDA tensor kernel B
+    (`csrc/roi_align_bwd.cu`, staged or general by shape as kernel A),
+    counted as one launch: its C entry runs it as two, partial sums per
+    (box, 64-channel chunk) into a scratch buffer allocated here, then
+    their sum in chunk order, so the bits repeat without atomics. On a CPU
+    tensor the plain backward."""
     _check_bwd(features, boxes, grad, out_hw)
     if features.device.type == "cpu":
         return roi_align_backward_reference(features, boxes, grad, image_hw,

@@ -1,0 +1,58 @@
+"""AlexCap train and eval steps — port of `imagecaptioning_tpu/train/
+step.py` (`make_train_step`, `make_eval_step`; `create_train_state` is the
+model's and the optimizer's construction in the driver).
+
+One step: uint8 images → `resnet_v2_preprocess` on the card → forward in
+training mode (BatchNorm on batch statistics and its running statistics
+updated while the encoder trains) → smoothed cross-entropy → backward →
+global-norm clip → Adam. It returns the loss and the global norm of the
+gradients before the clip, as 0-d tensors that are not synchronised.
+Dropout masks draw from the trainer's generator.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from imagecaptioning_tpu_torch.models.api import make_forward_fn
+from imagecaptioning_tpu_torch.train import optim
+
+
+def make_train_step(model, optimizer: torch.optim.Optimizer,
+                    generator: Optional[torch.Generator] = None,
+                    preprocess: Optional[Callable] = None,
+                    clip_norm: Optional[float] = None) -> Callable:
+    """(images (B, H, W, 3), gt (B, T)) → {"loss", "grad_norm"}. With
+    `preprocess` the images are uint8 and go through it first; with
+    `clip_norm` the gradients are clipped to that global norm."""
+    forward = make_forward_fn(model)
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def train_step(images, gt) -> Dict[str, torch.Tensor]:
+        x = preprocess(images) if preprocess is not None else images
+        model.train()
+        loss, _ = forward(x, gt, generator=generator, train=True)
+        # every parameter's: a trunk outside the optimizer (finetune_cnn
+        # off) still has gradients, for the global norm
+        model.zero_grad(set_to_none=True)
+        loss.backward()
+        gnorm = optim.global_norm(params)
+        if clip_norm is not None:
+            optim.clip_by_global_norm_(params, clip_norm, gnorm)
+        optimizer.step()
+        return {"loss": loss.detach(), "grad_norm": gnorm}
+    return train_step
+
+
+def make_eval_step(model) -> Callable:
+    """(preprocessed images, gt) → the eval-mode loss (no dropout, running
+    statistics, no update), a 0-d tensor."""
+    forward = make_forward_fn(model)
+
+    @torch.no_grad()
+    def eval_step(images, gt) -> torch.Tensor:
+        model.eval()
+        return forward(images, gt, train=False)[0]
+    return eval_step

@@ -21,9 +21,22 @@
   RPN training state (params and the optax Adam state of each group) →
   the port's model and optimizer state dicts, so that a JAX run resumes
   in the port.
+- `lstm_captioner_state_dict_from_jax`: the JAX AlexCap `LSTMCaptioner`
+  params and BatchNorm statistics → the port's `LSTMCaptioner`
+  state_dict, the reference `LSTMModel` key layout (`features.{0,1,4-7}`
+  for the ResNet trunk as `nn.Sequential(*resnet.children())[:-2]`
+  numbers it, or the VGG trunk's `features.{idx}`; `llm.*`), after
+  `export_sequential_resnet`, `export_bn` and `export_reference_lstm_head`
+  (`utils/torch_port.py:637-662, 845-862, 751-762`).
+- `lstm_train_state_from_jax`: a JAX AlexCap LSTM training state (params,
+  BatchNorm statistics, the optax state of `make_optimizer`) → the port's
+  model and `AlexAdam` state dicts, Adam's moments and counts and the
+  frozen phase's gate carried over.
+- `load_lstm_checkpoint`: a port training checkpoint or a reference
+  `LSTMModel` state dict saved with `torch.save` → the model's state dict.
 - `seeded_init_`: random weights from a seed, for serving or training
   without a trained checkpoint (a model's `ZERO_INIT` parameters stay
-  zero).
+  zero; BatchNorm weights 1 and biases 0, torch's init).
 """
 
 from __future__ import annotations
@@ -263,6 +276,121 @@ def rpn_train_state_from_jax(params: Mapping, adam: Mapping,
                                  rpn_state_dict_from_jax)
 
 
+def _bn(params: Mapping, stats: Mapping,
+        prefix: str) -> Dict[str, torch.Tensor]:
+    sd = _norm(params, prefix)
+    sd[f"{prefix}.running_mean"] = _t(stats["mean"])
+    sd[f"{prefix}.running_var"] = _t(stats["var"])
+    # torch's step counter, which flax has not
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd
+
+
+def resnet_state_dict(params: Mapping, stats: Mapping,
+                      prefix: str = "features") -> Dict[str, torch.Tensor]:
+    """ResNetFeatures params and batch stats (`conv1`, `bn1`,
+    `layer{s}_{b}`) → `nn.Sequential(*resnet.children())[:-2]` keys:
+    `{prefix}.0` conv1, `.1` bn1, `.4`–`.7` layer1–4; as many blocks as the
+    tree holds."""
+    def conv(block):     # flax (kh, kw, I, O) → torch (O, I, kh, kw)
+        return _t(np.asarray(block["kernel"]).transpose(3, 2, 0, 1))
+    sd = {f"{prefix}.0.weight": conv(params["conv1"])}
+    sd.update(_bn(params["bn1"], stats["bn1"], f"{prefix}.1"))
+    stage = 1
+    while f"layer{stage}_0" in params:
+        b = 0
+        while f"layer{stage}_{b}" in params:
+            bp, bs = params[f"layer{stage}_{b}"], stats[f"layer{stage}_{b}"]
+            t = f"{prefix}.{stage + 3}.{b}"
+            for i in (1, 2, 3):
+                sd[f"{t}.conv{i}.weight"] = conv(bp[f"conv{i}"])
+                sd.update(_bn(bp[f"bn{i}"], bs[f"bn{i}"], f"{t}.bn{i}"))
+            if "downsample_conv" in bp:
+                sd[f"{t}.downsample.0.weight"] = conv(bp["downsample_conv"])
+                sd.update(_bn(bp["downsample_bn"], bs["downsample_bn"],
+                              f"{t}.downsample.1"))
+            b += 1
+        stage += 1
+    return sd
+
+
+def lstm_captioner_state_dict_from_jax(params: Mapping,
+                                       batch_stats: Mapping
+                                       ) -> Dict[str, torch.Tensor]:
+    """JAX `LSTMCaptioner` params and `batch_stats` → the port's
+    state_dict, weights and BatchNorm running statistics, in the reference
+    `LSTMModel` key layout (a VGG trunk has no statistics)."""
+    if "bn1" in params["features"]:
+        sd = resnet_state_dict(params["features"], batch_stats["features"])
+    else:
+        sd = vgg_features_state_dict(params["features"])
+    sd.update(language_head_state_dict(params["llm"]))
+    return sd
+
+
+def lstm_train_state_from_jax(params: Mapping, batch_stats: Mapping,
+                              opt_state, optimizer) -> Tuple[Dict, Dict]:
+    """A JAX AlexCap LSTM training state → (the port's model state_dict,
+    the state dict for `optimizer`, an `AlexAdam` that `make_optimizer`
+    built over the port's model).
+
+    `opt_state` is `make_optimizer`'s optax state: the clip's, then the
+    `multi_transform` over `encoder` and `head`, each a chain whose Adam
+    state (`ScaleByAdamState`) is found inside, the encoder's behind
+    `gate_until`'s count. An Adam that has not yet taken a step (the
+    encoder before the finetune boundary) leaves its parameters without
+    state, as torch's Adam leaves a parameter that has had no gradient.
+    Each group's `updates` is the head's Adam count: the updates taken."""
+    def adam_state(tree):
+        if hasattr(tree, "mu") and hasattr(tree, "nu"):
+            return tree
+        if isinstance(tree, (tuple, list)):
+            for leaf in tree:
+                found = adam_state(leaf)
+                if found is not None:
+                    return found
+        if isinstance(tree, Mapping):
+            for leaf in tree.values():
+                found = adam_state(leaf)
+                if found is not None:
+                    return found
+        if hasattr(tree, "inner_states"):
+            return adam_state(tree.inner_states)
+        if hasattr(tree, "inner_state"):
+            return adam_state(tree.inner_state)
+        return None
+
+    inner = next(t for t in opt_state if hasattr(t, "inner_states"))
+    adams = {name: adam_state(inner.inner_states[name])
+             for name in inner.inner_states}
+
+    def convert(tree):
+        return lstm_captioner_state_dict_from_jax(tree, batch_stats)
+    opt_sd = optimizer.state_dict()
+    updates = int(adams["head"].count)
+    state = {}
+    for group in opt_sd["param_groups"]:
+        adam = adams[group["group"]]
+        group["updates"] = updates
+        if adam is None or int(adam.count) == 0:
+            continue
+        mu_sd = convert(_fill(params, adam.mu))
+        nu_sd = convert(_fill(params, adam.nu))
+        for idx, name in zip(group["params"], group["names"]):
+            state[idx] = {"step": torch.tensor(float(adam.count)),
+                          "exp_avg": mu_sd[name], "exp_avg_sq": nu_sd[name]}
+    opt_sd["state"] = state
+    return convert(params), opt_sd
+
+
+def load_lstm_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The model state dict of a port training checkpoint (its `model`
+    entry), or a reference `LSTMModel` state dict saved with
+    `torch.save`."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return sd["model"] if isinstance(sd.get("model"), Mapping) else sd
+
+
 def load_gt_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """Load a reference-layout GT state dict saved with `torch.save`,
     dropping the `net.vgg16_backbone.*`/`net.full_conv.*` duplicates the
@@ -290,9 +418,15 @@ def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
     `module`."""
     zero = getattr(module, "ZERO_INIT", ())
     params = dict(module.named_parameters())
+    norms = {f"{n}.{k}" for n, m in module.named_modules()
+             if isinstance(m, nn.modules.batchnorm._BatchNorm)
+             for k in ("weight", "bias")}
     gen = torch.Generator(device=next(iter(params.values())).device)
     gen.manual_seed(seed)
     for name, p in params.items():
+        if name in norms:
+            p.fill_(1.0 if name.endswith("weight") else 0.0)
+            continue
         weight = params.get(name.replace("bias", "weight"), p)
         fan_in = weight[0].numel() if weight.dim() > 1 else weight.numel()
         bound = 1.0 / math.sqrt(fan_in)

@@ -22,7 +22,13 @@ bitwise the same on a second launch (neither uses float atomics), also
 on the RPN's sampled boxes (repeated negatives, boxes far larger than
 the map and partly outside it). One fp32 RPN train step on the card
 against the CPU, from the same weights and sampler keys: each loss
-within 1e-4 relative, each weight within 2·lr.
+within 1e-4 relative, each weight within 2·lr. The AlexCap LSTM captioner
+(a cut ResNet): fp32 logits within 1e-4 of the CPU's with greedy and
+beam-3 tokens identical; one fp64 finetune step within 1e-10 in the loss
+and 1e-8 in every gradient and BatchNorm statistic (fp64: a seeded ResNet
+in training mode amplifies fp32 rounding past any such bound); the
+resident store's batches equal to the streaming path's. The ROI backward
+at outputs beyond 32 a side or 256 cells (the general kernels) as at 7×7.
 """
 
 import numpy as np
@@ -207,6 +213,12 @@ BWD_SHAPES = [
     (2, 10, 12, 12, 24, 192.0, 192.0, (16, 16)),
     # 32 output rows: the row mask's last bit
     (1, 8, 20, 30, 16, 320.0, 480.0, (32, 8)),
+    # beyond the staged kernels (more than 32 rows, more than 256 cells,
+    # more than 32 columns): the general kernels, chosen by shape; C = 70:
+    # a partial 64-channel chunk
+    (2, 9, 10, 11, 70, 96.0, 128.0, (33, 2)),
+    (2, 9, 10, 11, 24, 96.0, 128.0, (17, 16)),
+    (1, 12, 20, 30, 16, 320.0, 480.0, (9, 40)),
 ]
 
 
@@ -442,3 +454,133 @@ def test_tiny_rpn_train_step_on_card_matches_cpu(card):
         off += int((d > 1e-7).sum())
         total += d.numel()
     assert off <= 1e-5 * total
+
+
+def _tiny_alexcap(device, dtype=torch.float32):
+    from imagecaptioning_tpu_torch.models.captioners import LSTMCaptioner
+    model = LSTMCaptioner(30, 16, 16, backbone_stages=(1, 1, 1, 1)).to(device)
+    model.features.compute_dtype = dtype
+    return model.to(dtype)
+
+
+@pytest.mark.cuda
+def test_tiny_alexcap_on_card_matches_cpu(card):
+    """The AlexCap LSTM captioner (ResNet stages 1,1,1,1) in fp32 on the
+    card against the CPU on uint8 CelebA-size images, preprocess included:
+    teacher-forced logits within 1e-4, greedy and beam-3 tokens
+    identical."""
+    from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
+    twins = [_tiny_alexcap(d).eval() for d in (torch.device("cpu"), card)]
+    twins[1].load_state_dict(seeded_init_(twins[0], 0).state_dict())
+    rng = np.random.RandomState(7)
+    images = torch.from_numpy(rng.randint(0, 256, (2, 218, 178, 3),
+                                          dtype=np.uint8))
+    gt = torch.from_numpy(rng.randint(1, 31, (2, 6)))
+    out = []
+    for model in twins:
+        d = next(model.parameters()).device
+        x = resnet_v2_preprocess(images.to(d))
+        with torch.no_grad():
+            out.append((model(x, gt.to(d)).logits.cpu(),
+                        api.make_greedy_fn(model, 7)(x).cpu(),
+                        api.make_beam_fn(model, 7, 3)(x).tokens.cpu()))
+    torch.testing.assert_close(out[1][0], out[0][0], rtol=1e-4, atol=1e-4)
+    assert torch.equal(out[1][1], out[0][1])
+    assert torch.equal(out[1][2], out[0][2])
+
+
+def _tiny_alexcap_step(device, dtype):
+    """One AlexCap finetune step (BatchNorm on batch statistics) in `dtype`
+    on `device` from seed 0's weights on a fixed batch → (loss, {name:
+    gradient before the update}, {name: running statistic after it}), on
+    the CPU."""
+    from imagecaptioning_tpu_torch.config.configs import get_lstm_config
+    from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
+    from imagecaptioning_tpu_torch.train import optim
+    from imagecaptioning_tpu_torch.train.step import make_train_step
+
+    rng = np.random.RandomState(8)
+    images = torch.from_numpy(rng.randint(0, 256, (2, 218, 178, 3),
+                                          dtype=np.uint8))
+    gt = torch.from_numpy(rng.randint(1, 31, (2, 6)))
+    seeded = seeded_init_(_tiny_alexcap(torch.device("cpu")), 0).state_dict()
+    model = _tiny_alexcap(device)
+    model.load_state_dict(seeded)
+    model.to(dtype)
+    model.features.compute_dtype = dtype
+    opt = optim.make_optimizer(get_lstm_config(), model, 10)
+    grads = {}
+    opt.register_step_pre_hook(lambda *_: grads.update(
+        {n: p.grad.cpu().clone() for n, p in model.named_parameters()}))
+    step = make_train_step(
+        model, opt, torch.Generator(device).manual_seed(0),
+        lambda u8: resnet_v2_preprocess(u8, dtype=dtype), clip_norm=1.0)
+    loss = float(step(images.to(device), gt.to(device))["loss"])
+    stats = {k: v.cpu() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return loss, grads, stats
+
+
+@pytest.mark.cuda
+def test_tiny_alexcap_train_step_on_card_matches_cpu(card):
+    """One fp64 AlexCap finetune step (BatchNorm on batch statistics) on
+    the card and on the CPU from the same weights and batch: the loss
+    within 1e-10 relative, every gradient before the update and
+    BatchNorm's running statistics within 1e-8 (fp64: a seeded ResNet in
+    training mode amplifies fp32 rounding past any such bound; the fp32
+    step is held by the next test)."""
+    (loss0, g0, s0), (loss1, g1, s1) = (
+        _tiny_alexcap_step(d, torch.float64)
+        for d in (torch.device("cpu"), card))
+    assert abs(loss1 - loss0) <= 1e-10 * abs(loss0)
+    assert sorted(g0) == sorted(g1)
+    for name, want in g0.items():
+        torch.testing.assert_close(g1[name], want, rtol=1e-8,
+                                   atol=1e-8 * float(want.abs().max()),
+                                   msg=name)
+    for name, want in s0.items():
+        torch.testing.assert_close(s1[name], want, rtol=1e-8, atol=1e-10,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_tiny_alexcap_fp32_train_step_on_card_is_as_close_to_fp64(card):
+    """The same step in fp32: the card's gradients and running statistics
+    no further from the CPU's fp64 step than twice the CPU's own fp32
+    step is, plus 1e-5 relative (‖g − g64‖ ≤ 2‖g_cpu − g64‖ + 1e-5‖g64‖,
+    per tensor; chip_smoke.py phase 18's gate); the loss within 1e-5
+    relative of the CPU's fp32 loss."""
+    cpu = torch.device("cpu")
+    loss64, g64, s64 = _tiny_alexcap_step(cpu, torch.float64)
+    loss_cpu, g_cpu, s_cpu = _tiny_alexcap_step(cpu, torch.float32)
+    loss_card, g_card, s_card = _tiny_alexcap_step(card, torch.float32)
+    assert abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    assert sorted(g_card) == sorted(g64)
+    for got, cpu32, want in ((g_card, g_cpu, g64), (s_card, s_cpu, s64)):
+        for name, w in want.items():
+            bound = (2 * float((cpu32[name].double() - w).norm())
+                     + 1e-5 * float(w.norm()))
+            assert float((got[name].double() - w).norm()) <= bound, name
+
+
+@pytest.mark.cuda
+def test_resident_store_on_card_matches_streaming(card):
+    """The train split staged on the card, gathered by the index stream,
+    gives the streaming path's batches, in order, over two epochs."""
+    from imagecaptioning_tpu_torch.config.configs import get_lstm_config
+    from imagecaptioning_tpu_torch.data import device_store, synthetic
+    from imagecaptioning_tpu_torch.data.loader import AlexDataLoader
+    from imagecaptioning_tpu_torch.train import driver
+
+    arrays, info = synthetic.make_face2text_arrays(num_images=20, seed=3)
+    loaders = [AlexDataLoader(arrays=arrays, info=info, seed=5)
+               for _ in range(2)]
+    store = device_store.stage_split(loaders[0], 0, card)
+    feed = device_store.index_stream(loaders[0], 0, 3, iterate=False)
+    stream = driver._batch_iterator(loaders[1], get_lstm_config(), 3)
+    for _ in range(10):
+        images, labels = device_store.gather_batch(
+            store, torch.from_numpy(next(feed)).to(card))
+        want_images, want_labels = next(stream)
+        assert np.array_equal(images.cpu().numpy(), want_images)
+        assert np.array_equal(labels.cpu().numpy(), want_labels)

@@ -183,8 +183,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_infer.main(["--model-type", "gt", "--ckpt", "x.pth",
                          "--dicts", "x.json", "--images", "."])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_infer.main(["--model-type", "lstm", "--ckpt", "x.pth",
+                         "--dicts", "x.json", "--images", "."])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_infer.main(["--model-type", "lstm_attention", "--ckpt", "x.pth",
                          "--dicts", "x.json", "--images", "."])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_infer.main(["--model-type", "vitb", "--ckpt", "x.pth",

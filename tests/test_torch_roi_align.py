@@ -210,8 +210,19 @@ def _vjp_cases():
          layout]))
         for layout in ("chw", "nhwc") for bf16 in (False, True)
         for i, shape in enumerate(SHAPES)]
-    return cases + [pytest.param(4, 32, 22, 22, 8, (720.0, 720.0), (7, 7),
-                                 True, "chw", id="training-bf16-chw")]
+    cases.append(pytest.param(4, 32, 22, 22, 8, (720.0, 720.0), (7, 7),
+                              True, "chw", id="training-bf16-chw"))
+    # outputs beyond the staged kernels' limits (more than 32 rows, more
+    # than 256 cells, more than 32 columns): the general kernels' shapes.
+    # No output count divides the map's 10 rows or 11 columns into an odd
+    # integer, so no full-image sample lands exactly on a pixel, where
+    # d_boxes jumps and the two frameworks' roundings pick either side
+    return cases + [
+        pytest.param(2, 5, 10, 11, 4, (96.0, 128.0), out_hw, bf16, layout,
+                     id=f"large-{out_hw[0]}x{out_hw[1]}-{bf16}-{layout}")
+        for out_hw, layout in (((33, 2), "nhwc"), ((17, 16), "chw"),
+                               ((9, 40), "nhwc"))
+        for bf16 in (False, True)]
 
 
 @pytest.mark.parametrize("n,r,hf,wf,c,image_hw,out_hw,bf16,layout",
@@ -316,11 +327,6 @@ def test_backward_computes_only_what_autograd_asks():
     # not contiguous
     pytest.param(torch.zeros(3, 9, 4, 7, 7).permute(0, 1, 3, 4, 2), (7, 7),
                  id="grad3"),
-    # a well-formed gradient of an output the kernels cannot stage: more
-    # than 32 rows, more than 256 cells
-    pytest.param(torch.zeros(3, 9, 33, 2, 4), (33, 2), id="side_over_32"),
-    pytest.param(torch.zeros(3, 9, 4 * 17 * 16), (17, 16),
-                 id="cells_over_256"),
 ])
 def test_backward_wrappers_reject_bad_gradients(grad, out_hw):
     feats, boxes = torch.zeros(3, 8, 8, 4), torch.ones(3, 9, 4)
