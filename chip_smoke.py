@@ -2,8 +2,9 @@
 """Card smoke run of the PyTorch port (imagecaptioning_tpu_torch): GT-box
 dense-caption serving and training on one CUDA card, with the LSTM head
 (phases 4–9) and the transformer head (phases 10–11), the full RPN
-DenseCap model's training and serving (phases 12–15), and the AlexCap
-LSTM captioner on ResNet-101 (phases 16–18).
+DenseCap model's training and serving (phases 12–15), and the four
+AlexCap families: the LSTM captioner on ResNet-101 (phases 16–18), the
+attention-LSTM (19), the Transformer (20) and ViT-B (21).
 
     python3 chip_smoke.py
 
@@ -146,8 +147,27 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 18. one fp32 finetune step at full width on the card against the CPU from
    the same weights and batch (2 × 218×178 → 224²): the loss within 1e-5
    relative, each gradient before the update as in 9, BatchNorm's running
-   statistics within 1e-5, every weight within 2·lr.
-Every line of phases 4–18 carries the card's name and power limit. The
+   statistics within 1e-5, every weight within 2·lr;
+19-21. the attention-LSTM (`get_lstm_attention_config`: ResNet-101,
+   embedding 1024, LSTM and attention 768), the Transformer
+   (`get_transformer_config`: ResNet-101, fc 2048→512 + ReLU, 6 + 6
+   layers over 49 positions, 8 heads, FFN 2048, dropout 0.1; its encoder
+   group a hard zero) and ViT-B (`get_vitb_config`: ViT-B/16 at 224², 197
+   tokens, a 6-layer decoder at 768, 8 heads, FFN 3072; its encoder
+   frozen), vocab 2,048 + 3, 17 steps, each as 16-17 do the LSTM: serving
+   64 images a call greedy and beam-3 with each step's attention map
+   (sums to 1 within 1e-4), then fp32 on the card against the CPU on 2
+   images (teacher-forced logits and alphas and the decodes' alphas and
+   beam scores within 1e-4, greedy and beam-3 tokens identical);
+   training at batch 12, bf16 over fp32 masters, Adam or AdamW, frozen
+   then finetune phase as the driver runs them (the Transformer's trunk
+   after the boundary: batch statistics and gradients in the clip,
+   weights unchanged; the ViT's encoder frozen in both), a checkpoint
+   restored bitwise; one train step after the boundary, dropout off, on
+   the card against the CPU, each gradient as in 9: the ResNet families
+   in fp64 (their trunk in training mode, as phase 18 finds), ViT-B in
+   fp32.
+Every line of phases 4–21 carries the card's name and power limit. The
 kernels line counts each kernel's launches over every path that runs it
 (`launches`, split in `launches_by_path`): the fused forward in both GT
 heads' serving and training and in RPN training (`rpn_training`, one a
@@ -155,13 +175,14 @@ step) and serving (`rpn_serving`, one a call); kernel A in both GT heads'
 training and in RPN training; kernel B in RPN training, its only main
 path (its numbers there are the RPN shape's; K1's and A's `rpn_shape`);
 the AlexCap paths launch none of them (`alexcap_serving`,
-`alexcap_training`: 0).
+`alexcap_training`, and `alexcap_<family>_serving` and `_training` for
+the other three: 0).
 The last three lines: the card as nvidia-smi reports it, one JSON line of
 per-kernel numbers, and {"ok": true, "device": ...}. The profiler's full
 tables go to <out-dir>/chip_smoke_*_profile.txt, one for each profiled
 decode or step (`--out-dir`, default
-build/chip_smoke), where the checkpoints of phases 8, 11, 13 and 17 are
-written and removed.
+build/chip_smoke), where the checkpoints of phases 8, 11, 13, 17 and
+19-21 are written and removed.
 """
 
 from __future__ import annotations
@@ -1369,7 +1390,7 @@ def rpn_reference_check(dev, build, card=""):
     return res
 
 
-# ------------------------------------------------- phases 16-18: AlexCap
+# --------------------------------- phases 16-21: the AlexCap families
 
 ALEX_IMAGES, ALEX_HW, ALEX_VOCAB, ALEX_SEQ = 64, (218, 178), 2048, 16
 ALEX_CALLS = 5
@@ -1380,38 +1401,83 @@ ALEX_LOSS_TOL = 1e-5
 # CPU's fp64 step than FP32_K times the CPU's own fp32 step is, plus
 # FP32_FLOOR (relative, per tensor)
 FP32_K, FP32_FLOOR = 2.0, 1e-5
+# each family's name in the output lines and infix of its profiler tables
+ALEX_NAMES = {"lstm": ("AlexCap", ""),
+              "lstm_attention": ("AlexCap attention-LSTM", "attention_"),
+              "transformer": ("AlexCap Transformer", "transformer_"),
+              "vitb": ("AlexCap ViT-B", "vitb_")}
+# an attention map sums to 1 over the positions at every step
+ALPHA_SUM_TOL = 1e-4
 
 
-def alexcap_cfg(**kw):
-    from imagecaptioning_tpu_torch.config.configs import get_lstm_config
-    return get_lstm_config().replace(**kw)
+def alexcap_cfg(model_type="lstm", **kw):
+    from imagecaptioning_tpu_torch.config.configs import get_config
+    return get_config(model_type).replace(**kw)
 
 
-def alexcap_serve(dev, roi, out_dir: Path, card=""):
-    """Phase 16: the AlexCap LSTM captioner served at full width from seed
-    0 (ResNet-101 in bf16 over bf16 weights, the head fp32, vocab 2048 + 3,
-    17 steps) on ALEX_IMAGES uint8 CelebA-size images on the card:
-    preprocess → trunk → greedy and beam-3 (raw-logit) decode through
-    `models.api`. captions/s from CUDA events over ALEX_CALLS calls after a
-    warm-up and before this phase's profiler; then the median card busy
-    time of PROFILED_CALLS profiled calls each, its idle share against the
-    event-timed call, and the kernels a call. No ROI kernel runs on this
-    path: every ROI wrapper's count stays 0."""
+def describe(cfg, model) -> str:
+    """The served model in the widths its config gives."""
+    trunk = f"ResNet {cfg.backbone_stages or (3, 4, 23, 3)} (bf16)"
+    if cfg.model_type == "lstm":
+        head = f"LSTM {cfg.lstm_size}, embedding {cfg.embedding_size}"
+    elif cfg.model_type == "lstm_attention":
+        head = (f"attention-LSTM {cfg.lstm_size} (attention "
+                f"{cfg.lstm_size}), embedding {cfg.embedding_size}")
+    elif cfg.model_type == "transformer":
+        e = cfg.transformer_size
+        head = (f"fc 2048->{e} + ReLU, {cfg.num_layers}-layer encoder over "
+                f"49 positions, {cfg.num_layers}-layer decoder, "
+                f"{cfg.num_heads} heads, FFN {4 * e}")
+    else:
+        vit = model.encoder
+        trunk = (f"ViT-B/{vit.patch_size} ({len(vit.encoder.layers)} "
+                 f"layers, {vit.hidden_dim} wide, "
+                 f"{vit.encoder.layers[0].self_attention.heads} heads, "
+                 f"{vit.encoder.pos_embedding.shape[1]} tokens; bf16)")
+        head = (f"{cfg.num_layers}-layer decoder at {cfg.embedding_size}, "
+                f"{cfg.num_heads} heads, FFN {4 * cfg.embedding_size}")
+    return (f"{trunk} + {head}, vocab {ALEX_VOCAB}+3; "
+            f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+            f"params")
+
+
+def alpha_sum_err(alphas) -> float:
+    """The largest distance of an attention map's sum from 1 (raises on a
+    non-finite map)."""
+    if not bool(torch.isfinite(alphas).all()):
+        raise AssertionError("non-finite attention maps")
+    return float((alphas.double().sum(-1) - 1).abs().max())
+
+
+def alexcap_serve(dev, roi, out_dir: Path, card="", model_type="lstm"):
+    """Phases 16, 19-21: an AlexCap family served at full width from seed
+    0 (its config: ResNet-101 or ViT-B/16 in bf16 over bf16 weights, the
+    head fp32, vocab 2048 + 3, 17 steps) on ALEX_IMAGES uint8 CelebA-size
+    images on the card: preprocess → encoder → greedy and beam-3
+    (raw-logit) decode through `models.api`, with the attention maps of
+    every step (not the LSTM's, which has none). captions/s from CUDA
+    events over ALEX_CALLS calls after a warm-up and before this phase's
+    profiler; then the median card busy time of PROFILED_CALLS profiled
+    calls each, its idle share against the event-timed call, and the
+    kernels a call. No ROI kernel runs on this path: every ROI wrapper's
+    count stays 0."""
     from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
     from imagecaptioning_tpu_torch.models import api
     from imagecaptioning_tpu_torch.models.captioners import build_model
     from imagecaptioning_tpu_torch.utils.weights import seeded_init_
 
+    label, infix = ALEX_NAMES[model_type]
     t0 = time.perf_counter()
-    cfg = alexcap_cfg(param_dtype="bfloat16")
+    cfg = alexcap_cfg(model_type, param_dtype="bfloat16")
     model = seeded_init_(build_model(cfg, ALEX_VOCAB, ALEX_SEQ, device=dev),
                          SEED).eval()
     init_s = time.perf_counter() - t0
     rng = np.random.RandomState(SEED + 16)
     images_u8 = torch.from_numpy(rng.randint(
         0, 256, (ALEX_IMAGES, *ALEX_HW, 3), dtype=np.uint8)).to(dev)
-    greedy = api.make_greedy_fn(model, ALEX_SEQ + 1)
-    beam = api.make_beam_fn(model, ALEX_SEQ + 1, BEAM)
+    alphas = model_type != "lstm"
+    greedy = api.make_greedy_fn(model, ALEX_SEQ + 1, collect_alphas=alphas)
+    beam = api.make_beam_fn(model, ALEX_SEQ + 1, BEAM, collect_alphas=alphas)
     outs = {}
 
     def run_greedy():
@@ -1436,6 +1502,20 @@ def alexcap_serve(dev, roi, out_dir: Path, card=""):
         pre_ms = cuda_ms(lambda: resnet_v2_preprocess(images_u8), iters=5)
         trunk_ms = cuda_ms(lambda: model.encode(x), iters=5)
     toks, res = outs["greedy"], outs["beam"]
+    maps = {}
+    if alphas:
+        toks, greedy_alphas = toks
+        if greedy_alphas.shape[:2] != (ALEX_IMAGES, ALEX_SEQ + 1) or (
+                res.alphas.shape != (ALEX_IMAGES, BEAM, ALEX_SEQ + 1,
+                                     greedy_alphas.shape[-1])):
+            raise AssertionError(f"alpha shapes {tuple(greedy_alphas.shape)}"
+                                 f", {tuple(res.alphas.shape)}")
+        maps = {"positions": greedy_alphas.shape[-1],
+                "greedy_sum_max_err": alpha_sum_err(greedy_alphas),
+                "beam_sum_max_err": alpha_sum_err(res.alphas)}
+        if max(maps["greedy_sum_max_err"],
+               maps["beam_sum_max_err"]) > ALPHA_SUM_TOL:
+            raise AssertionError(f"attention maps do not sum to 1: {maps}")
     v3 = ALEX_VOCAB + 3
     if toks.shape != (ALEX_IMAGES, ALEX_SEQ + 1) or res.tokens.shape != (
             ALEX_IMAGES, BEAM, ALEX_SEQ + 1):
@@ -1446,12 +1526,7 @@ def alexcap_serve(dev, roi, out_dir: Path, card=""):
             raise AssertionError("token ids out of range")
     if not bool(torch.isfinite(res.scores[:, 0]).all()):
         raise AssertionError("non-finite best-beam scores")
-    out = {"card": card,
-           "model": f"ResNet {cfg.backbone_stages or (3, 4, 23, 3)} (bf16) "
-                    f"+ LSTM {cfg.lstm_size}, embedding {cfg.embedding_size}, "
-                    f"vocab {ALEX_VOCAB}+3; "
-                    f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}"
-                    f" M params",
+    out = {"card": card, "model": describe(cfg, model),
            "images": f"{ALEX_IMAGES} x {ALEX_HW[0]}x{ALEX_HW[1]} uint8",
            "steps": ALEX_SEQ + 1, "beam": BEAM, "init_s": init_s,
            "greedy_ms": greedy_ms, "beam_ms": beam_ms,
@@ -1462,24 +1537,31 @@ def alexcap_serve(dev, roi, out_dir: Path, card=""):
            "roi_launches": launches,
            "beam_finished_share": float(res.finished[:, 0].float().mean()),
            "greedy_tokens_head": toks[0].tolist()}
-    for name, fn, ms in (("greedy", run_greedy, greedy_ms),
+    if maps:
+        out["attention_maps"] = maps
+    for kind, fn, ms in (("greedy", run_greedy, greedy_ms),
                          ("beam", run_beam, beam_ms)):
-        p = profiled(fn, out_dir, f"chip_smoke_alexcap_{name}_profile.txt")
+        p = profiled(fn, out_dir,
+                     f"chip_smoke_alexcap_{infix}{kind}_profile.txt")
         p["device_idle_share_of_timed_call"] = 1 - p["device_busy_ms"] / ms
-        out[f"{name}_profile"] = p
-    print(f"AlexCap serving: {json.dumps(out)}", flush=True)
+        out[f"{kind}_profile"] = p
+    print(f"{label} serving: {json.dumps(out)}", flush=True)
     return out, model
 
 
-def alexcap_reference_check(dev, model, card=""):
-    """Phase 16's check: the served weights in fp32 on the card against
-    the CPU on 2 uint8 images (preprocess included): teacher-forced logits
-    within LOGIT_TOL, greedy and beam-3 tokens identical."""
+def alexcap_reference_check(dev, model, card="", model_type="lstm"):
+    """The check of phases 16 and 19-21: the served weights in fp32 on the
+    card against the CPU on 2 uint8 images (preprocess included):
+    teacher-forced logits and alphas, and the greedy and beam-3 decodes'
+    alphas and beam scores, within LOGIT_TOL; greedy and beam-3 tokens
+    identical. `beam_score_gap_min` is the CPU's smallest distance
+    between two of an image's final beams: how close a tie came."""
     from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
     from imagecaptioning_tpu_torch.models import api
     from imagecaptioning_tpu_torch.models.captioners import build_model
 
-    cfg = alexcap_cfg(compute_dtype="float32")
+    cfg = alexcap_cfg(model_type, compute_dtype="float32")
+    alphas = model_type != "lstm"
     sd = {k: (v.float() if v.is_floating_point() else v).cpu()
           for k, v in model.state_dict().items()}
     rng = np.random.RandomState(SEED + 17)
@@ -1492,26 +1574,46 @@ def alexcap_reference_check(dev, model, card=""):
         twin.load_state_dict(sd)
         x = resnet_v2_preprocess(images.to(d))
         with torch.inference_mode():
-            got.append((twin(x, labels.to(d)).logits.cpu(),
-                        api.make_greedy_fn(twin, ALEX_SEQ + 1)(x).cpu(),
-                        api.make_beam_fn(twin, ALEX_SEQ + 1, BEAM)(x)))
+            out = twin(x, labels.to(d))
+            greedy = api.make_greedy_fn(twin, ALEX_SEQ + 1,
+                                        collect_alphas=alphas)(x)
+            beam = api.make_beam_fn(twin, ALEX_SEQ + 1, BEAM,
+                                    collect_alphas=alphas)(x)
+        toks, greedy_alphas = greedy if alphas else (greedy, None)
+        got.append({"logits": out.logits.cpu(), "tokens": toks.cpu(),
+                    "beam_tokens": beam.tokens.cpu(),
+                    "beam_scores": beam.scores.cpu(),
+                    "maps": [] if not alphas else [
+                        out.alphas.cpu(), greedy_alphas.cpu(),
+                        beam.alphas.cpu()]})
         del twin
-    (lc, gc, bc), (ld, gd, bd) = got
-    err = float((ld - lc).abs().max())
+    c, d = got
+    err = float((d["logits"] - c["logits"]).abs().max())
+    scores = c["beam_scores"].double().sort(dim=-1).values
     res = {"card": card, "logits_max_abs_err": err,
-           "logits_max_abs": float(lc.abs().max()),
-           "greedy_token_agreement": float((gc == gd).float().mean()),
+           "logits_max_abs": float(c["logits"].abs().max()),
+           "greedy_token_agreement": float(
+               (c["tokens"] == d["tokens"]).float().mean()),
            "beam_token_agreement": float(
-               (bc.tokens == bd.tokens.cpu()).float().mean()),
+               (c["beam_tokens"] == d["beam_tokens"]).float().mean()),
            "beam_score_max_abs_err": float(
-               (bc.scores - bd.scores.cpu()).abs().max()),
-           "tolerance": f"logits {LOGIT_TOL} absolute; tokens identical"}
-    print(f"AlexCap reference check (fp32 card vs CPU, full width): "
+               (c["beam_scores"] - d["beam_scores"]).abs().max()),
+           "beam_score_gap_min": float((scores[:, 1:] - scores[:, :-1])
+                                       .min()),
+           "tolerance": f"logits, alphas and beam scores {LOGIT_TOL} "
+                        f"absolute; greedy and beam tokens identical"}
+    alpha_err = max((float((b - a).abs().max())
+                     for a, b in zip(c["maps"], d["maps"])), default=0.0)
+    if alphas:
+        res["alphas_max_abs_err"] = alpha_err
+    name = ALEX_NAMES[model_type][0]
+    print(f"{name} reference check (fp32 card vs CPU, full width): "
           f"{json.dumps(res)}", flush=True)
-    if not (np.isfinite(err) and err <= LOGIT_TOL
+    if not (np.isfinite(err) and err <= LOGIT_TOL and alpha_err <= LOGIT_TOL
+            and res["beam_score_max_abs_err"] <= LOGIT_TOL
             and res["greedy_token_agreement"] == 1.0
             and res["beam_token_agreement"] == 1.0):
-        raise AssertionError(f"AlexCap card differs from the CPU: {res}")
+        raise AssertionError(f"{name} card differs from the CPU: {res}")
     return res
 
 
@@ -1538,17 +1640,21 @@ def alexcap_data(seed=SEED + 18):
     return arrays, info
 
 
-def alexcap_train(dev, roi, out_dir: Path, card=""):
-    """Phase 17: `train_LSTM`'s step at full width (get_lstm_config: batch
-    12, bf16 trunk over fp32 masters, Adam in the encoder and head groups,
-    clip 1.0) over the synthetic split staged on the card, fed index
-    batches (the resident store, whose batches must equal the streaming
-    path's); ALEX_WARMUP + ALEX_STEPS event-timed steps in the frozen phase
-    (the trunk in eval mode, no gradient), then as many in the finetune
-    phase (BatchNorm on batch statistics, trunk gradients): images/s, the
-    median busy ms of PROFILED_CALLS profiled steps, idle share, kernels a
-    step and peak memory each; then a checkpoint (model with BatchNorm's
-    buffers, optimizer, generator, step, iterators) restored bitwise."""
+def alexcap_train(dev, roi, out_dir: Path, card="", model_type="lstm"):
+    """Phases 17 and 19-21: a family's train step at full width (its
+    config: batch 12, bf16 encoder over fp32 masters, Adam (LSTM
+    families) or AdamW (Transformer, ViT) in its groups, clip 1.0) over
+    the synthetic split staged on the card, fed index batches (the
+    resident store, whose batches must equal the streaming path's);
+    ALEX_WARMUP + ALEX_STEPS event-timed steps in the frozen phase (the
+    trunk in eval mode, no gradient), then as many in the finetune phase
+    as the driver runs it after the boundary (BatchNorm on batch
+    statistics and trunk gradients; the Transformer's trunk weights never
+    move, its statistics do; a `trained_encoder` ViT stays frozen):
+    images/s, the median busy ms of PROFILED_CALLS profiled steps, idle
+    share, kernels a step and peak memory each; then a checkpoint (model
+    with BatchNorm's buffers, optimizer, generator, step, iterators)
+    restored bitwise."""
     from functools import partial
 
     from imagecaptioning_tpu_torch.data import device_store
@@ -1556,11 +1662,13 @@ def alexcap_train(dev, roi, out_dir: Path, card=""):
     from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
     from imagecaptioning_tpu_torch.models.captioners import build_model
     from imagecaptioning_tpu_torch.train import optim
+    from imagecaptioning_tpu_torch.train.driver import encoder_frozen
     from imagecaptioning_tpu_torch.train.step import make_train_step
     from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
     from imagecaptioning_tpu_torch.utils.weights import seeded_init_
 
-    cfg = alexcap_cfg()
+    label, infix = ALEX_NAMES[model_type]
+    cfg = alexcap_cfg(model_type)
     bs = cfg.batch_size
     arrays, info = alexcap_data()
     loader = AlexDataLoader(arrays=arrays, info=info, seed=cfg.seed)
@@ -1597,11 +1705,17 @@ def alexcap_train(dev, roi, out_dir: Path, card=""):
         for _ in range(k):
             idx = torch.from_numpy(next(feed)).to(dev)
             losses.append(step(*device_store.gather_batch(store, idx))["loss"])
-    trunk_w = model.features[4][0].conv1.weight
+    vit = model_type == "vitb"
+    encoder = model.encoder
+    trunk_w = (encoder.conv_proj.weight if vit
+               else encoder[4][0].conv1.weight)
     w0 = trunk_w.detach().clone()
+    stat = None if vit else encoder[1].running_mean
     phases = {}
-    for name, frozen in (("frozen", True), ("finetune", False)):
-        model.freeze_encoder = frozen
+    for it, name in ((0, "frozen"), (1, "finetune")):
+        # the driver's rule with the boundary at iteration 1
+        frozen = model.freeze_encoder = encoder_frozen(cfg, it, 1)
+        s0 = None if stat is None else stat.clone()
         run(ALEX_WARMUP)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1614,21 +1728,28 @@ def alexcap_train(dev, roi, out_dir: Path, card=""):
             raise AssertionError(f"ROI kernels launched on the AlexCap "
                                  f"path: {launches}")
         p = profiled(lambda: run(1), out_dir,
-                     f"chip_smoke_alexcap_{name}_train_profile.txt")
+                     f"chip_smoke_alexcap_{infix}{name}_train_profile.txt")
         p["device_idle_share_of_timed_step"] = 1 - p["device_busy_ms"] / ms
+        trains = optim.trains_encoder(cfg) and not frozen
         moved = not torch.equal(trunk_w, w0)
-        enc_state = any(q in opt.state for q in model.features.parameters())
-        if moved == frozen or enc_state == frozen:
+        enc_state = any(q in opt.state for q in encoder.parameters())
+        stats_moved = None if stat is None else not torch.equal(stat, s0)
+        if (moved != trains or enc_state != trains
+                or stats_moved not in (None, not frozen)):
             raise AssertionError(f"{name} phase: trunk moved {moved}, its "
-                                 f"Adam state {enc_state}")
-        phases[name] = {"step_ms": ms, "images_per_s": bs / ms * 1e3,
+                                 f"Adam state {enc_state}, its BatchNorm "
+                                 f"statistics moved {stats_moved}")
+        phases[name] = {"encoder_frozen": frozen, "step_ms": ms,
+                        "images_per_s": bs / ms * 1e3,
                         "peak_mem_gb": peak, "profiled_step": p,
                         "trunk_moved": moved, "roi_launches": launches}
+        if stat is not None:
+            phases[name]["bn_stats_moved"] = stats_moved
     loss_values = [float(v) for v in losses]
     if not all(np.isfinite(loss_values)):
-        raise AssertionError(f"non-finite AlexCap loss: {loss_values}")
+        raise AssertionError(f"non-finite {label} loss: {loss_values}")
 
-    path = out_dir / "chip_smoke_alexcap.ckpt"
+    path = out_dir / f"chip_smoke_alexcap_{infix}.ckpt"
     done = len(losses)
     state = {"model": model.state_dict(), "optimizer": opt.state_dict(),
              "step": done, "generator": gen.get_state(),
@@ -1650,9 +1771,10 @@ def alexcap_train(dev, roi, out_dir: Path, card=""):
                   and same_state(opt.state_dict(), opt2.state_dict())
                   and torch.equal(gen.get_state(), gen2.get_state()))
     if not round_trip:
-        raise AssertionError("the restored AlexCap checkpoint differs")
+        raise AssertionError(f"the restored {label} checkpoint differs")
     del model2, opt2
-    res = {"card": card, "batch": bs,
+    res = {"card": card, "batch": bs, "model": describe(cfg, model),
+           "optimizer": type(opt).__name__,
            "images": f"{bs} x {ALEX_HW[0]}x{ALEX_HW[1]} uint8 a step, "
                      f"{len(loader.split_ix[0])} staged on the card "
                      f"({store.nbytes / 2**20:.1f} MiB), vocab {ALEX_VOCAB}",
@@ -1660,24 +1782,26 @@ def alexcap_train(dev, roi, out_dir: Path, card=""):
            **phases, "loss_per_step": loss_values,
            "checkpoint": {"gb": ckpt_gb, "save_s": save_s,
                           "round_trip_bitwise": round_trip}}
-    print(f"AlexCap training: {json.dumps(res)}", flush=True)
+    print(f"{label} training: {json.dumps(res)}", flush=True)
     return res
 
 
-def alexcap_step_grads(dev, state=None, dtype=torch.float32, perturb=0.0):
-    """One finetune step of the AlexCap model at full width in `dtype`
-    (fp32 or fp64: weights, statistics, preprocess, trunk, head and loss)
-    on `dev` from seed 0's weights (or `state`) on 2 uint8 CelebA-size
-    images, their preprocessed pixels moved by `perturb` relative noise →
-    (weights before as a CPU state dict, the model after, the loss, {name:
-    the gradient before the update, on the CPU})."""
+def alexcap_step_grads(dev, state=None, dtype=torch.float32, perturb=0.0,
+                       model_type="lstm"):
+    """One train step of an AlexCap family at full width in `dtype` (fp32
+    or fp64: weights, statistics, preprocess, encoder, head and loss), after
+    the finetune boundary (a `trained_encoder` ViT's encoder frozen), its
+    dropout off, on `dev` from seed 0's weights (or `state`) on 2 uint8
+    CelebA-size images, their preprocessed pixels moved by `perturb`
+    relative noise → (weights before as a CPU state dict, the model after,
+    the loss, {name: the gradient before the update, on the CPU})."""
     from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
     from imagecaptioning_tpu_torch.models.captioners import build_model
     from imagecaptioning_tpu_torch.train import optim
     from imagecaptioning_tpu_torch.train.step import make_train_step
     from imagecaptioning_tpu_torch.utils.weights import seeded_init_
 
-    cfg = alexcap_cfg(compute_dtype="float32")
+    cfg = alexcap_cfg(model_type, compute_dtype="float32", use_dropout=False)
     rng = np.random.RandomState(SEED + 19)
     images = torch.from_numpy(rng.randint(0, 256, (2, *ALEX_HW, 3),
                                           dtype=np.uint8))
@@ -1692,7 +1816,7 @@ def alexcap_step_grads(dev, state=None, dtype=torch.float32, perturb=0.0):
     else:
         model.load_state_dict(state)
     model.to(dtype)
-    model.features.compute_dtype = dtype
+    model.encoder.compute_dtype = dtype
     opt = optim.make_optimizer(cfg, model, 10)
     grads = {}
     opt.register_step_pre_hook(lambda *_: grads.update(
@@ -1708,12 +1832,25 @@ def alexcap_step_grads(dev, state=None, dtype=torch.float32, perturb=0.0):
     return state, model, float(out["loss"]), grads
 
 
+# gradients that are zero but for rounding: the softmax over the
+# attention's positions ignores a shift of every score, so the score
+# bias's gradient is held against the step's largest gradient instead
+ZERO_GRADS = ("llm.attention.v.bias",)
+
+
 def step_agreement(got, want, lr) -> dict:
     """Two AlexCap steps' (`alexcap_step_grads`) loss, gradients,
-    BatchNorm statistics and weights against each other."""
+    BatchNorm statistics and weights against each other; ZERO_GRADS by
+    their largest element on either side, relative to the largest
+    gradient of the step (`zero_grads_rel_max`)."""
     _, got_model, got_loss, got_grads = got
     _, want_model, want_loss, want_grads = want
-    agree = grad_agreement(got_grads, want_grads)
+    agree = grad_agreement(got_grads, {k: v for k, v in want_grads.items()
+                                       if k not in ZERO_GRADS})
+    largest = max(float(v.abs().max()) for v in want_grads.values())
+    zero_rel = max((max(float(got_grads[k].abs().max()),
+                        float(want_grads[k].abs().max())) / largest
+                    for k in ZERO_GRADS if k in want_grads), default=0.0)
     got_sd, want_sd = got_model.state_dict(), want_model.state_dict()
     worst, worst_name = 0.0, ""
     want_params = dict(want_model.named_parameters())
@@ -1722,18 +1859,23 @@ def step_agreement(got, want, lr) -> dict:
         if d > worst:
             worst, worst_name = d, name
     top = sorted(agree, key=lambda n: -agree[n][1] - agree[n][0])[:4]
+    # every parameter but a frozen encoder's
+    frozen = ({id(p) for p in want_model.encoder.parameters()}
+              if getattr(want_model, "freeze_encoder", False) else set())
+    trained = sorted(n for n, p in want_model.named_parameters()
+                     if id(p) not in frozen)
     return {"loss": [got_loss, want_loss],
             "loss_rel_err": abs(got_loss - want_loss) / abs(want_loss),
             "grads_compared": len(agree),
-            "grads_all": sorted(got_grads) == sorted(want_grads) == sorted(
-                n for n, _ in want_model.named_parameters()),
+            "grads_all": sorted(got_grads) == sorted(want_grads) == trained,
             "grad_share_over_tol_max": max(o for _, o in agree.values()),
+            "zero_grads_rel_max": zero_rel,
             "grad_rel_err_max": max(e for e, _ in agree.values()),
             "grad_worst_by_tensor": {n: agree[n] for n in top},
-            "bn_running_stats_max_abs_err": max(
+            "bn_running_stats_max_abs_err": max((
                 float((got_sd[k].cpu() - v).abs().max())
                 for k, v in want_sd.items()
-                if k.endswith(("running_mean", "running_var"))),
+                if k.endswith(("running_mean", "running_var"))), default=0.0),
             "param_max_abs_diff": worst, "param_max_abs_diff_at": worst_name,
             "params_within_2lr": worst <= 2 * lr + 1e-7}
 
@@ -1843,6 +1985,56 @@ def alexcap_step_check(dev, card=""):
     return res
 
 
+def family_step_check(dev, model_type, card=""):
+    """Phases 19-21's step check: one train step after the finetune
+    boundary at full width on the card against the CPU, from the same
+    weights and batch, dropout off. The loss within ALEX_LOSS_TOL
+    relative; each gradient before the update within GRAD_REL_TOL
+    relative in all but GRAD_SHARE_TOL of its elements (ZERO_GRADS within
+    GRAD_REL_TOL of the step's largest gradient); BatchNorm's running
+    statistics within BN_TOL; every weight within 2·lr.
+    - The ResNet families in fp64: a seeded ResNet-101 in training mode
+      amplifies fp32 rounding into whole-percent gradient differences
+      (phase 18). The Transformer's trunk gets gradients (they enter the
+      clip) and moves its statistics, but no weight.
+    - ViT-B (its encoder frozen: no BatchNorm, no trunk backward) in
+      fp32."""
+    label = ALEX_NAMES[model_type][0]
+    lr = alexcap_cfg(model_type).learning_rate
+    cpu = torch.device("cpu")
+    dtype = torch.float32 if model_type == "vitb" else torch.float64
+    res = {"card": card, "dtype": str(dtype).split(".")[-1],
+           "tolerance": f"loss {ALEX_LOSS_TOL} relative, each gradient "
+                        f"{GRAD_REL_TOL} relative in all but "
+                        f"{GRAD_SHARE_TOL} of each tensor's elements, "
+                        f"BatchNorm statistics {BN_TOL}, params within "
+                        f"2 lr = {2 * lr}"}
+    want = alexcap_step_grads(cpu, dtype=dtype, model_type=model_type)
+    state = want[0]
+    got = alexcap_step_grads(dev, state, dtype=dtype, model_type=model_type)
+    res["step"] = a = step_agreement(got, want, lr)
+    if model_type == "transformer":
+        after = got[1].state_dict()
+        res["trunk_weights_unchanged"] = all(
+            torch.equal(after[k].cpu(), state[k].to(after[k].dtype))
+            for k in state if k.startswith("features.")
+            and not k.endswith(("running_mean", "running_var",
+                                "num_batches_tracked")))
+        res["trunk_grads"] = sum(k.startswith("features.") for k in got[3])
+    print(f"{label} train step (card vs CPU, full width): "
+          f"{json.dumps(res)}", flush=True)
+    if not (a["loss_rel_err"] <= ALEX_LOSS_TOL and a["grads_all"]
+            and a["grad_share_over_tol_max"] <= GRAD_SHARE_TOL
+            and a["zero_grads_rel_max"] <= GRAD_REL_TOL
+            and a["bn_running_stats_max_abs_err"] <= BN_TOL
+            and a["params_within_2lr"]
+            and res.get("trunk_weights_unchanged", True)
+            and res.get("trunk_grads", 1) > 0):
+        raise AssertionError(f"{label} card train step differs from the "
+                             f"CPU's: {res}")
+    return res
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out-dir", type=Path, default=Path("build/chip_smoke"),
@@ -1860,6 +2052,13 @@ def main() -> int:
     from imagecaptioning_tpu_torch.utils import weights
 
     t_start = time.perf_counter()
+    # seconds from the end of one group of phases to the end of the next
+    laps, t_lap = {}, [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1881,6 +2080,7 @@ def main() -> int:
                       .splitlines(keepends=True)
                       if any(w in line for w in ("Used", "spill",
                                                  "properties"))))
+    lap("1 build")
 
     flush = torch.zeros(2, FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     print(f"events around no work: {device_ms(lambda: None, 50)} ms")
@@ -1916,6 +2116,7 @@ def main() -> int:
                    served=served)
     ref = reference_check(dev, model, build, api, card=smi)
     del model, run_beam, run_greedy
+    lap("2-6 ROI forward, GT LSTM-head serving")
 
     # phase 10: the transformer head, the reference's default GT model
     model = seeded(False)
@@ -1931,6 +2132,7 @@ def main() -> int:
         label="transformer reference check (fp32 card vs CPU, full width)",
         card=smi, same_tokens=True)
     del model, run_beam, run_greedy
+    lap("10 GT transformer-head serving")
 
     train_bwd, train_bwd_calls = check_roi_backward(
         dev, roi, TRAIN_BATCH, N_REGIONS, TRAIN_IMAGE // 32, 512,
@@ -1948,6 +2150,7 @@ def main() -> int:
             TRAIN_IMAGE, 20, flush, out_hw)
         general_bwd.update({f"{case} {out_hw[0]}x{out_hw[1]}": v
                             for case, v in cases.items()})
+    lap("7 ROI backward")
     trained = train(dev, roi, args.out_dir, card=smi)
     step_check = train_step_check(dev, card=smi)
     # phase 11: the transformer head's training
@@ -1957,6 +2160,7 @@ def main() -> int:
     t_step_check = train_step_check(
         dev, kind="transformer", card=smi,
         label="transformer train step (fp32 card vs CPU, full width)")
+    lap("8-9, 11 GT training")
 
     # phases 12-15: the RPN model (get_densecap_config: 128 + 128 sampled
     # boxes, 300 test proposals)
@@ -1987,6 +2191,7 @@ def main() -> int:
     rpn_served = serve_rpn(dev, build_rpn, normalize_images, roi,
                            args.out_dir, card=smi)
     rpn_ref = rpn_reference_check(dev, build_rpn, card=smi)
+    lap("12-15 RPN")
 
     # phases 16-18: the AlexCap LSTM captioner (ResNet-101, get_lstm_config)
     alex_served, alex_model = alexcap_serve(dev, roi, args.out_dir, card=smi)
@@ -1994,9 +2199,30 @@ def main() -> int:
     del alex_model
     alex_trained = alexcap_train(dev, roi, args.out_dir, card=smi)
     alex_step = alexcap_step_check(dev, card=smi)
+    lap("16-18 AlexCap LSTM")
     alexcap_paths = {"alexcap_serving": alex_served["roi_launches"],
                      "alexcap_training": alex_trained["finetune"][
                          "roi_launches"]}
+    # phases 19-21: the other three AlexCap families
+    families = {}
+    for model_type in ("lstm_attention", "transformer", "vitb"):
+        fam_served, fam_model = alexcap_serve(dev, roi, args.out_dir,
+                                              card=smi, model_type=model_type)
+        fam_ref = alexcap_reference_check(dev, fam_model, card=smi,
+                                          model_type=model_type)
+        del fam_model
+        fam_trained = alexcap_train(dev, roi, args.out_dir, card=smi,
+                                    model_type=model_type)
+        families[model_type] = {
+            "serving": fam_served, "reference_check": fam_ref,
+            "training": fam_trained,
+            "train_step_check": family_step_check(dev, model_type, smi)}
+        alexcap_paths[f"alexcap_{model_type}_serving"] = fam_served[
+            "roi_launches"]
+        alexcap_paths[f"alexcap_{model_type}_training"] = fam_trained[
+            "finetune"]["roi_launches"]
+        torch.cuda.empty_cache()
+        lap(f"{19 + len(families) - 1} AlexCap {model_type}")
 
     # the serving path's kernel: the fused entry, bf16 map → bf16 codes
     main_case = slice_roi["roi_align_batch_chw bf16->bf16 CHW"]
@@ -2098,8 +2324,9 @@ def main() -> int:
                "alexcap": {"serving": alex_served,
                            "reference_check": alex_ref,
                            "training": alex_trained,
-                           "train_step_check": alex_step},
-               "seconds": time.perf_counter() - t_start}
+                           "train_step_check": alex_step, **families},
+               "seconds": time.perf_counter() - t_start,
+               "phase_seconds": laps}
     print(f"summary: {json.dumps(summary)}")
     print(smi)
     print(json.dumps({"kernels": [kernel, *backward]}))

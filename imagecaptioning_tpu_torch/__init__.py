@@ -12,8 +12,11 @@ kernel → VGG classifier head → caption head → greedy/beam region decode,
 driven by ``python -m imagecaptioning_tpu_torch.infer --model-type gt``)
 and training (the ROI backward as hand-written CUDA kernels, driven by
 ``python -m imagecaptioning_tpu_torch.traingt``); the RPN DenseCap model
-(``train_DenseCap``); and the AlexCap LSTM captioner on ResNet-101
-(``train_LSTM``, ``infer --model-type lstm``).
+(``train_DenseCap``); and the four AlexCap caption families: the LSTM,
+attention-LSTM and Transformer captioners on ResNet-101 and the ViT-B/16
+captioner (``train_LSTM``, ``train_LSTMwAttention``,
+``train_Transformer``, ``train_ViTB``; ``infer --model-type
+lstm|lstm_attention|transformer|vitb``).
 
 Layout
 ------
@@ -25,16 +28,18 @@ Layout
 - ``ops``       tokens, loss, LSTM, the reference-math transformer, ROI
                 pooling forward and backward (+ their CUDA kernels in
                 ``csrc``)
-- ``models``    VGG16, ResNet, the LSTM caption head, the GT dense
-                captioner (with its transformer head), the RPN model, the
-                AlexCap LSTM captioner, fixed-shape greedy/beam decoding
-                and the decode API
+- ``models``    VGG16, ResNet, ViT-B/16, the LSTM, attention and
+                transformer caption heads, the GT dense captioner, the
+                RPN model, the AlexCap captioners, fixed-shape
+                greedy/beam decoding (with attention maps) and the
+                decode API
 - ``train``     the dense drivers and the AlexCap driver (optimizers,
                 train steps, CLI)
 - ``eval``      the dense mAP/METEOR evaluators, the AlexCap scorer
                 (METEOR, BLEU, BLEU-4, CIDEr-D) and their eval loops
 - ``utils``     device resolution, weights and training state carried
-                over from the JAX tree, checkpoints, JSON histories
+                over from the JAX tree, pretrained-encoder init,
+                checkpoints, JSON histories
 """
 
 __version__ = "0.1.0"

@@ -1,15 +1,18 @@
 """Serving CLI — the port's counterpart of the root `infer.py`
-(`caption_alexcap` for `--model-type lstm`, `caption_dense` for
+(`caption_alexcap` for the AlexCap `--model-type`s `lstm`,
+`lstm_attention`, `transformer` and `vitb`; `caption_dense` for
 `--model-type gt`).
 
-`--model-type lstm` captions every image of a directory with the AlexCap
-LSTM captioner (ResNet-101 by default; `--set backbone_stages=...` or
-`use_vggface=true` must match the checkpoint), greedy or beam (`--beam K`,
-raw-logit scores as in the JAX package): each image is resized to 218×178
-(CelebA's size) as the JAX CLI does, then preprocessed on the card
-(short side 232, center crop 224, ImageNet normalize). `--ckpt` is a port
-training checkpoint (`train_LSTM`'s best model) or a reference
-`LSTMModel.state_dict()` saved with `torch.save`:
+An AlexCap `--model-type` captions every image of a directory with that
+family's config (ResNet-101 by default; `--set backbone_stages=...`,
+`use_vggface=true` or `vit_dims=...` must match the checkpoint), greedy
+or beam (`--beam K`, raw-logit scores as in the JAX package): each image
+is resized to 218×178 (CelebA's size) as the JAX CLI does, then
+preprocessed on the card (short side 232, center crop 224, ImageNet
+normalize). `--ckpt` is a port training checkpoint (the best model of
+`train_LSTM`, `train_LSTMwAttention`, `train_Transformer` or
+`train_ViTB`) or a reference model's `state_dict()` of that family saved
+with `torch.save`:
 
   python -m imagecaptioning_tpu_torch.infer --model-type lstm \\
       --ckpt runs/models/best_model_LSTM_resnet_ft_bs12_clip.ckpt \\
@@ -53,16 +56,10 @@ from imagecaptioning_tpu_torch.models.captioners import build_model
 from imagecaptioning_tpu_torch.models.densecap import GTDenseCaptioner
 from imagecaptioning_tpu_torch.train import dense_driver
 from imagecaptioning_tpu_torch.utils.platform import resolve_device
-from imagecaptioning_tpu_torch.utils.weights import (load_gt_checkpoint,
-                                                     load_lstm_checkpoint)
+from imagecaptioning_tpu_torch.utils.weights import (load_alexcap_checkpoint,
+                                                     load_gt_checkpoint)
 
 CANVAS = 720
-# The slice each AlexCap --model-type waits for (ROADMAP.md, Queue 1).
-_NOT_PORTED = {
-    "lstm_attention": "Slice E — the other caption families",
-    "transformer": "Slice E — the other caption families",
-    "vitb": "Slice E — the other caption families",
-}
 
 
 def load_vocab(dicts_path: str) -> Vocab:
@@ -89,11 +86,11 @@ def caption_alexcap(args) -> dict:
     vocab = load_vocab(args.dicts)
     cfg = configs.apply_overrides(configs.get_config(args.model_type),
                                   dict(kv.split("=", 1) for kv in args.set))
-    # serving stores the trunk's weights in its compute dtype
+    # serving stores the encoder's weights in its compute dtype
     model = build_model(cfg.replace(param_dtype=cfg.compute_dtype),
                         vocab.vocab_size, args.seq_length,
                         device=device).eval()
-    model.load_state_dict(load_lstm_checkpoint(args.ckpt))
+    model.load_state_dict(load_alexcap_checkpoint(args.ckpt))
     paths, images_u8 = _load_images(args.images)
     if not paths:
         raise SystemExit(f"no images in {args.images}")
@@ -169,9 +166,9 @@ def main(argv=None):
     p.add_argument("--model-type", default="gt",
                    choices=["lstm", "lstm_attention", "transformer",
                             "vitb", "gt"],
-                   help="lstm: the AlexCap LSTM captioner; gt: the GT-box "
-                        "dense captioner; the other AlexCap families raise "
-                        "until their slices land")
+                   help="an AlexCap family (lstm, lstm_attention, "
+                        "transformer, vitb), or gt: the GT-box dense "
+                        "captioner")
     p.add_argument("--ckpt", required=True)
     p.add_argument("--dicts", required=True)
     p.add_argument("--images", required=True)
@@ -186,10 +183,6 @@ def main(argv=None):
                    help="torch device (default: the first CUDA card)")
     p.add_argument("--out", default="")
     a = p.parse_args(argv)
-    if a.model_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"--model-type {a.model_type} is not ported yet (ROADMAP.md, "
-            f"Queue 1, {_NOT_PORTED[a.model_type]})")
     result = caption_dense(a) if a.model_type == "gt" else caption_alexcap(a)
     text = json.dumps(result, indent=2)
     if a.out:

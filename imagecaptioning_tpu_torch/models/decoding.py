@@ -19,16 +19,21 @@ over `max_steps` with the same fixed shapes and the same rules:
   `_beam_invariant_step` does.
 
 A decode step is `step_fn(carry, tokens (B, 1), t) -> (carry, logits
-(B, V))`.
+(B, V))`, or `(carry, logits, alphas (B, P))` where the caller collects
+alphas (`collect_alphas`): greedy then returns them as (B, L, P), and the
+beam search as `BeamResult.alphas` (B, K, L, P), each beam's gathered
+from its parent every step and reordered with the final order. With
+`length_normalize`, a beam's final score is divided by its length (the
+first END's index; max_steps where END never comes or comes first).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-DecodeStep = Callable[[Any, torch.Tensor, int], Tuple[Any, torch.Tensor]]
+DecodeStep = Callable[[Any, torch.Tensor, int], Tuple]
 NEG = -1e30
 
 
@@ -60,28 +65,35 @@ def expand_for_beams(carry: Any, beam_size: int) -> Any:
 
 
 def greedy_decode(step_fn: DecodeStep, carry: Any, batch: int,
-                  start_token: int, max_steps: int) -> torch.Tensor:
-    """Greedy argmax decode for a fixed step count → tokens (B, max_steps).
-    `argmax` takes the first maximum, as `jnp.argmax` does."""
+                  start_token: int, max_steps: int,
+                  collect_alphas: bool = False):
+    """Greedy argmax decode for a fixed step count → tokens (B, max_steps),
+    or (tokens, alphas (B, max_steps, P)) with `collect_alphas`. `argmax`
+    takes the first maximum, as `jnp.argmax` does."""
     device = _first_leaf(carry).device
     tok = torch.full((batch, 1), start_token, dtype=torch.long, device=device)
-    out = []
+    out, alphas = [], []
     for t in range(max_steps):
-        carry, logits = step_fn(carry, tok, t)
+        carry, logits, *step_alphas = step_fn(carry, tok, t)
         tok = logits.argmax(dim=-1, keepdim=True)
         out.append(tok)
-    return torch.cat(out, dim=1)
+        if collect_alphas:
+            alphas.append(step_alphas[0].float())
+    tokens = torch.cat(out, dim=1)
+    return (tokens, torch.stack(alphas, dim=1)) if collect_alphas else tokens
 
 
 class BeamResult(NamedTuple):
     tokens: torch.Tensor      # (B, K, L) best-first
     scores: torch.Tensor      # (B, K)
     finished: torch.Tensor    # (B, K) bool
+    alphas: Optional[torch.Tensor] = None     # (B, K, L, P)
 
 
 def beam_search(step_fn: DecodeStep, carry: Any, batch: int, beam_size: int,
                 start_token: int, end_token: int, max_steps: int,
-                use_logprobs: bool = False) -> BeamResult:
+                use_logprobs: bool = False, length_normalize: bool = False,
+                collect_alphas: bool = False) -> BeamResult:
     """Fixed-shape batched beam search. `carry` must already be expanded
     to B*K along its batch axis (beam-major within batch)."""
     k = beam_size
@@ -96,9 +108,10 @@ def beam_search(step_fn: DecodeStep, carry: Any, batch: int, beam_size: int,
     cur = torch.full((batch * k, 1), start_token, dtype=torch.long,
                      device=device)
     frozen_row = None
+    alphas = None
 
     for t in range(max_steps):
-        carry, logits = step_fn(carry, cur, t)
+        carry, logits, *step_alphas = step_fn(carry, cur, t)
         v = logits.shape[-1]
         logits = logits.float()
         if use_logprobs:
@@ -118,6 +131,14 @@ def beam_search(step_fn: DecodeStep, carry: Any, batch: int, beam_size: int,
 
         tokens = tokens.gather(1, parents[..., None].expand(-1, -1, max_steps))
         tokens[:, :, t] = words
+        if collect_alphas:
+            sa = step_alphas[0].float().reshape(batch, k, -1)
+            if alphas is None:
+                alphas = sa.new_zeros((batch, k, max_steps, sa.shape[-1]))
+            alphas = alphas.gather(1, parents[..., None, None].expand(
+                -1, -1, *alphas.shape[2:]))
+            alphas[:, :, t] = sa.gather(1, parents[..., None].expand(
+                -1, -1, sa.shape[-1]))
         was_finished = finished.gather(1, parents)
         is_end = words == end_token
         newly_done = is_end & ~was_finished
@@ -133,6 +154,10 @@ def beam_search(step_fn: DecodeStep, carry: Any, batch: int, beam_size: int,
         cur = words.reshape(batch * k, 1)
 
     final = torch.where(finished, fin_scores, scores)
+    if length_normalize:
+        lengths = (tokens == end_token).to(torch.int32).argmax(dim=-1)
+        lengths = torch.where(lengths == 0, max_steps, lengths)
+        final = final / lengths.clamp_min(1).float()
     # Prefer finished beams (an unfinished beam wins only if none finished).
     any_finished = finished.any(dim=1, keepdim=True)
     rank = torch.where(any_finished & ~finished,
@@ -140,4 +165,8 @@ def beam_search(step_fn: DecodeStep, carry: Any, batch: int, beam_size: int,
     # stable, like jnp.argsort, so equal ranks keep their beam order
     order = torch.argsort(-rank, dim=1, stable=True)
     tokens = tokens.gather(1, order[..., None].expand(-1, -1, max_steps))
-    return BeamResult(tokens, rank.gather(1, order), finished.gather(1, order))
+    if collect_alphas:
+        alphas = alphas.gather(1, order[..., None, None].expand(
+            -1, -1, *alphas.shape[2:]))
+    return BeamResult(tokens, rank.gather(1, order), finished.gather(1, order),
+                      alphas)

@@ -46,49 +46,19 @@ from torch import nn
 from imagecaptioning_tpu_torch.models.backbones.vgg import (VGGClassifierHead,
                                                             VGGFeatures)
 from imagecaptioning_tpu_torch.models import decoding
-from imagecaptioning_tpu_torch.models.heads import LanguageHead
+from imagecaptioning_tpu_torch.models.heads import (LanguageHead,
+                                                    TransformerHead)
 from imagecaptioning_tpu_torch.ops import boxes as boxlib
 from imagecaptioning_tpu_torch.ops import losses, tokens
 from imagecaptioning_tpu_torch.ops.box_sampler import (SampleResult,
                                                        sample_boxes)
 from imagecaptioning_tpu_torch.ops.nms import nms
 from imagecaptioning_tpu_torch.ops.roi_align import roi_align_batch_chw
-from imagecaptioning_tpu_torch.ops.transformer import Decoder, Encoder
 
 
 class GTDenseOutput(NamedTuple):
     logits: torch.Tensor        # (N, R, T+1, V+3)
     region_codes: torch.Tensor  # (N, R, 4096)
-
-
-class TransformerHead(nn.Module):
-    """The GT transformer caption head (reference `AlexTransformer`):
-    `fc.0` (4096 → E) and a ReLU, an Encoder over the one projected code
-    (patch_length 1), and a Decoder over the V+3 table with
-    `seq_length + 1` positions."""
-
-    def __init__(self, vocab_size: int, seq_length: int, embed_size: int,
-                 num_layers: int, heads: int, dropout: float,
-                 image_dim: int = 4096):
-        super().__init__()
-        self.fc = nn.Sequential(nn.Linear(image_dim, embed_size), nn.ReLU())
-        self.encoder = Encoder(embed_size, num_layers, heads, 4, dropout,
-                               patch_length=1)
-        self.decoder = Decoder(vocab_size + 3, embed_size, num_layers, heads,
-                               4, dropout, max_length=seq_length + 1)
-
-    def encode(self, codes: torch.Tensor, train: bool = False,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Region codes (B, 1, 4096) → encoder output (B, 1, E)."""
-        return self.encoder(self.fc(codes), train, generator)
-
-    def forward(self, codes: torch.Tensor, tokens_with_start: torch.Tensor,
-                generator: Optional[torch.Generator] = None,
-                train: bool = False) -> torch.Tensor:
-        """Teacher-forced logits (B, T+1, V+3) under the causal × non-NULL
-        key mask."""
-        enc = self.encode(codes, train, generator)
-        return self.decoder(tokens_with_start, enc, train, generator)
 
 
 class GTDenseCaptioner(nn.Module):

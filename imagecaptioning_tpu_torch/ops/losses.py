@@ -12,12 +12,13 @@
 - `logistic_criterion`: the stable objectness loss
   (`DenseCap/densecap/LogisticCriterion.py:17-30`);
 - `smooth_l1` and `box_regression_loss`: the masked smooth-L1 on box
-  transforms (`DenseCap/densecap/BoxRegressionCriterion.py`).
+  transforms (`DenseCap/densecap/BoxRegressionCriterion.py`);
+- `doubly_stochastic_regularizer`: the attention family's penalty on
+  attention mass (`AlexCap/LSTMwAttentionModel.py:59-71`).
 
 All compute in fp32 whatever the inputs' dtype. Softplus is written as
 `logaddexp(x, 0)`, which is `jax.nn.softplus`: `F.softplus` turns into
-the identity above 20. The attention family's regularizer comes with its
-slice (ROADMAP.md, Queue 1).
+the identity above 20.
 """
 
 from __future__ import annotations
@@ -69,6 +70,14 @@ def sum_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     nll = -logp.gather(-1, t[:, None])[:, 0]
     mask = (t != null_token).float()
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def doubly_stochastic_regularizer(alphas: torch.Tensor) -> torch.Tensor:
+    """((1 − Σ_t α_{t,p})²) averaged over batch and positions, from alphas
+    (B, T, P), in fp32 (fp64 for fp64 alphas): attention mass near 1 at
+    every position over the caption."""
+    a = alphas.to(torch.promote_types(alphas.dtype, torch.float32))
+    return ((1.0 - a.sum(dim=1)) ** 2).mean()
 
 
 def logistic_criterion(scores: torch.Tensor,

@@ -12,9 +12,9 @@ The reference's quirks change the trained function, so they are kept:
   norm(attn + x) → dropout, then a `TransformerBlock` over the encoder
   output;
 - LayerNorm epsilon is 1e-6 (flax's default, torch's is 1e-5);
-- the decoder adds `position_embedding[t]` to the word embedding and does
-  not scale the embedding by sqrt(E) (the GT head's `scale_embedding=
-  False`; the AlexCap transformer's sqrt(E) scale comes with its slice).
+- the decoder adds `position_embedding[t]` to the word embedding; the
+  AlexCap families scale the embedding by sqrt(E) first (`emb·sqrt(E) +
+  pos`, `scale_embedding=True`), the GT head does not.
 
 Dropout acts only when `train` (flax's `deterministic=not train`), its
 masks drawn from the `generator` passed in. Module names follow the
@@ -26,8 +26,12 @@ Cached decode (JAX `:77-115`): the cross-attention keys and values of the
 encoder output are projected once per decode (`Decoder.init_state`), and
 each layer's self-attention keeps preallocated (B, T, h, d) key and value
 caches, written in place at step t; step t attends over positions ≤ t
-with no key masking (a decoded NULL token is attended to). Plain torch
-products and elementwise ops: no TPU kernel sits under them.
+with no key masking (a decoded NULL token is attended to). Asked for
+them, the decoder also returns its alphas: the last layer's
+cross-attention probabilities, (N, h, T, L) teacher-forced and averaged
+over heads, (B, L), at a decode step (JAX `captioners.py:253-254, 316`);
+unasked, it computes nothing for them. Plain torch products and
+elementwise ops: no TPU kernel sits under them.
 """
 
 from __future__ import annotations
@@ -85,21 +89,25 @@ class MultiHeadAttention(nn.Module):
         return self._split(self.keys(keys)), self._split(self.values(values))
 
     def attend(self, query: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               masked: Optional[torch.Tensor] = None) -> torch.Tensor:
+               masked: Optional[torch.Tensor] = None,
+               return_attn: bool = False):
         """query (N, Tq, E) against projected k/v (N, L, h, d); `masked`
-        (True where a score is filled, broadcast to (N, h, Tq, L))."""
+        (True where a score is filled, broadcast to (N, h, Tq, L)). With
+        `return_attn`, → (output, the probabilities (N, h, Tq, L))."""
         q = self._split(self.queries(query))
         energy = torch.einsum("nqhd,nkhd->nhqk", q, k)
         if masked is not None:
             energy = energy.masked_fill(masked, NEG_INF)
         attn = torch.softmax(energy / math.sqrt(self.embed_size), dim=3)
         out = torch.einsum("nhql,nlhd->nqhd", attn, v)
-        return self.fc_out(out.reshape(query.shape[0], -1, self.embed_size))
+        out = self.fc_out(out.reshape(query.shape[0], -1, self.embed_size))
+        return (out, attn) if return_attn else out
 
     def forward(self, values: torch.Tensor, keys: torch.Tensor,
-                query: torch.Tensor,
-                masked: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.attend(query, *self.project_kv(values, keys), masked)
+                query: torch.Tensor, masked: Optional[torch.Tensor] = None,
+                return_attn: bool = False):
+        return self.attend(query, *self.project_kv(values, keys), masked,
+                           return_attn)
 
 
 class TransformerBlock(nn.Module):
@@ -117,9 +125,15 @@ class TransformerBlock(nn.Module):
         self.dropout = dropout
 
     def forward(self, value, key, query, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.finish(self.attention(value, key, query), query, train,
-                           generator)
+                generator: Optional[torch.Generator] = None,
+                return_attn: bool = False):
+        """The block's output, or (output, attention probabilities) with
+        `return_attn`."""
+        if not return_attn:
+            return self.finish(self.attention(value, key, query), query,
+                               train, generator)
+        attn, probs = self.attention(value, key, query, return_attn=True)
+        return self.finish(attn, query, train, generator), probs
 
     def finish(self, attn: torch.Tensor, query: torch.Tensor,
                train: bool = False,
@@ -166,33 +180,42 @@ class DecoderBlock(nn.Module):
         self.dropout = dropout
 
     def forward(self, x, enc_out, trg_masked, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                return_attn: bool = False):
+        """The block's output, or (output, its cross-attention
+        probabilities (N, h, T, L)) with `return_attn`."""
         query = dropout(self.norm(self.attention(x, x, x, trg_masked) + x),
                         self.dropout, train, generator)
         return self.transformer_block(enc_out, enc_out, query, train,
-                                      generator)
+                                      generator, return_attn)
 
     def step(self, x: torch.Tensor, t: int, cache: KV, cross: KV,
-             future: torch.Tensor) -> torch.Tensor:
+             future: torch.Tensor, return_attn: bool = False):
         """One cached decode step of x (B, 1, E) at position t: this step's
         keys and values go into `cache` (each (B, T, h, d)) at t, and the
-        scores of the positions after t (`future`, (T,) bool) are masked."""
+        scores of the positions after t (`future`, (T,) bool) are masked.
+        With `return_attn`, → (output, the cross-attention probabilities
+        (B, h, 1, L))."""
         att = self.attention
         k, v = att.project_kv(x, x)
         cache[0][:, t] = k[:, 0]
         cache[1][:, t] = v[:, 0]
         query = self.norm(att.attend(x, cache[0], cache[1], future) + x)
         block = self.transformer_block
-        return block.finish(block.attention.attend(query, *cross), query)
+        if not return_attn:
+            return block.finish(block.attention.attend(query, *cross), query)
+        out, probs = block.attention.attend(query, *cross, return_attn=True)
+        return block.finish(out, query), probs
 
 
 class Decoder(nn.Module):
-    """Token decoder: word embedding + position embedding → DecoderBlocks
-    → vocabulary logits."""
+    """Token decoder: word embedding (times sqrt(E) with
+    `scale_embedding`) + position embedding → DecoderBlocks → vocabulary
+    logits."""
 
     def __init__(self, vocab_out: int, embed_size: int, num_layers: int,
                  heads: int, forward_expansion: int, dropout: float,
-                 max_length: int):
+                 max_length: int, scale_embedding: bool = False):
         super().__init__()
         self.word_embedding = nn.Embedding(vocab_out, embed_size)
         self.position_embedding = nn.Embedding(max_length, embed_size)
@@ -201,32 +224,48 @@ class Decoder(nn.Module):
             for _ in range(num_layers))
         self.fc_out = nn.Linear(embed_size, vocab_out)
         self.dropout = dropout
+        self.scale = math.sqrt(embed_size) if scale_embedding else None
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        emb = self.word_embedding(tokens)
+        return emb if self.scale is None else emb * self.scale
 
     def forward(self, tokens: torch.Tensor, enc_out: torch.Tensor,
                 train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                return_alphas: bool = False):
         """Teacher-forced logits (N, T, vocab_out) under `make_trg_mask`
-        of `tokens`; the encoder output is attended unmasked."""
+        of `tokens`; the encoder output is attended unmasked. With
+        `return_alphas`, → (logits, the last layer's cross-attention
+        probabilities (N, h, T, L))."""
         trg_masked = make_trg_mask(tokens) == 0
-        x = (self.word_embedding(tokens)
+        x = (self._embed(tokens)
              + self.position_embedding.weight[None, :tokens.shape[1]])
         x = dropout(x, self.dropout, train, generator)
-        for layer in self.layers:
-            x = layer(x, enc_out, trg_masked, train, generator)
-        return self.fc_out(x)
+        last = len(self.layers) - 1
+        alphas = None
+        for i, layer in enumerate(self.layers):
+            if return_alphas and i == last:
+                x, alphas = layer(x, enc_out, trg_masked, train, generator,
+                                  return_attn=True)
+            else:
+                x = layer(x, enc_out, trg_masked, train, generator)
+        logits = self.fc_out(x)
+        return (logits, alphas) if return_alphas else logits
 
-    def init_state(self, enc_out: torch.Tensor, steps: Optional[int] = None
-                   ) -> Tuple[List[KV], Callable]:
+    def init_state(self, enc_out: torch.Tensor, steps: Optional[int] = None,
+                   alphas: bool = False) -> Tuple[List[KV], Callable]:
         """Decode state for `enc_out` (B, L, E) and a decode of `steps`
         steps (default `max_length`): (cache, step). `cache` holds each
         layer's zeroed self-attention (k, v) of (B, steps, h, d), as the
         JAX decode sizes its cache by its step count; `step(cache, tokens
-        (B, 1), t)` returns the logits (B, vocab_out) at step t and writes
-        this step's keys and values into `cache`. The step closes over each
-        layer's cross-attention (k, v), fixed for the whole decode, and the
-        causal mask (row t: the cache positions after step t). Past the
-        position table, the last position's embedding is added (JAX's
-        gather clamps the index)."""
+        (B, 1), t)` returns the logits (B, vocab_out) at step t, or with
+        `alphas` (logits, the last layer's cross-attention averaged over
+        heads (B, L)), and writes this step's keys and values into
+        `cache`. The step closes over each layer's cross-attention (k, v),
+        fixed for the whole decode, and the causal mask (row t: the cache
+        positions after step t). Past the position table, the last
+        position's embedding is added (JAX's gather clamps the index)."""
         b = enc_out.shape[0]
         steps = steps or self.position_embedding.num_embeddings
         future = torch.ones(steps, steps, dtype=torch.bool,
@@ -239,12 +278,18 @@ class Decoder(nn.Module):
             cache.append((k, torch.zeros_like(k)))
         last = self.position_embedding.num_embeddings - 1
 
-        def step(cache: List[KV], tokens: torch.Tensor,
-                 t: int) -> torch.Tensor:
-            x = (self.word_embedding(tokens)
+        final = self.layers[-1]
+
+        def step(cache: List[KV], tokens: torch.Tensor, t: int):
+            x = (self._embed(tokens)
                  + self.position_embedding.weight[min(t, last)])
             for layer, layer_cache, layer_cross in zip(self.layers, cache,
                                                        cross):
-                x = layer.step(x, t, layer_cache, layer_cross, future[t])
-            return self.fc_out(x)[:, 0]
+                if alphas and layer is final:
+                    x, probs = layer.step(x, t, layer_cache, layer_cross,
+                                          future[t], return_attn=True)
+                else:
+                    x = layer.step(x, t, layer_cache, layer_cross, future[t])
+            logits = self.fc_out(x)[:, 0]
+            return (logits, probs.mean(dim=1)[:, 0]) if alphas else logits
         return cache, step

@@ -1,6 +1,6 @@
 """The AlexCap training driver — port of `imagecaptioning_tpu/train/
 driver.py` (`make_loader`, `_batch_iterator`, `_resident_mode`, `train`)
-for the LSTM family.
+for the four families.
 
 The skeleton every reference driver shares (`train_LSTM.py` …, SURVEY
 §2.2): `iters_per_epoch = save_checkpoint_every // batch_size`,
@@ -11,7 +11,13 @@ finetune phase; `eval_split` on val every epoch, the best checkpoint kept
 by val METEOR (with the loader's `iterators`); a preemption checkpoint
 `<save_path>.preempt` on SIGTERM/SIGINT; a final test-split eval, with a
 beam sweep of 1–5 when `use_beam` (`train_Transformer.py:166-178`); the
-loss and results histories in the reference schema.
+loss and results histories in the reference schema. The encoder's
+gradient is stopped in the frozen phase, and for the whole run in a
+`trained_encoder` ViT (`encoder_frozen`); after the boundary the
+Transformer's trunk runs in training mode and its gradient enters the
+clip, though its optimizer group is a hard zero (`train/optim.py`).
+`encoder_init` merges converted encoder weights into the seeded init
+(`utils/pretrained.py`).
 
 The input path is the device-resident store (`data.device_store`: the
 uint8 train split on the card, index batches per step) or the streaming
@@ -36,11 +42,13 @@ from imagecaptioning_tpu_torch.data.loader import (AlexDataLoader,
                                                    prefetch_batches)
 from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
 from imagecaptioning_tpu_torch.eval.eval_split import eval_split
-from imagecaptioning_tpu_torch.models.captioners import DTYPES, build_model
+from imagecaptioning_tpu_torch.models.captioners import (
+    DTYPES, build_model, encoder_always_frozen, encoder_name)
 from imagecaptioning_tpu_torch.train import optim
 from imagecaptioning_tpu_torch.train.step import (make_eval_step,
                                                   make_train_step)
 from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
+from imagecaptioning_tpu_torch.utils import pretrained
 from imagecaptioning_tpu_torch.utils.io import LossHistory, ResultsHistory
 from imagecaptioning_tpu_torch.utils.platform import resolve_device
 from imagecaptioning_tpu_torch.utils.weights import seeded_init_
@@ -98,12 +106,18 @@ def _resident_mode(cfg: CaptionConfig, loader,
 def _refuse_unported(cfg: CaptionConfig, synthetic_learnable: bool) -> None:
     if cfg.grad_accum_steps > 1:
         raise NotImplementedError(f"grad_accum_steps > 1 {_WAITING}")
-    for knob in ("encoder_init", "tensorboard_dir", "debug_nans"):
+    for knob in ("tensorboard_dir", "debug_nans"):
         if getattr(cfg, knob):
             raise NotImplementedError(f"{knob} {_WAITING}")
     if synthetic_learnable:
         raise NotImplementedError(f"the learnable synthetic face2text data "
                                   f"(--synthetic-learnable) {_WAITING}")
+
+
+def encoder_frozen(cfg: CaptionConfig, it: int, frozen_until: int) -> bool:
+    """Whether iteration `it` stops the encoder's gradient: the frozen
+    phase, and every iteration of a `trained_encoder` ViT."""
+    return it < frozen_until or encoder_always_frozen(cfg)
 
 
 def train(cfg: CaptionConfig, *, device=None,
@@ -130,6 +144,12 @@ def train(cfg: CaptionConfig, *, device=None,
     model = seeded_init_(build_model(cfg, loader.getVocabSize(),
                                      loader.getSeqLength(), device=dev),
                          cfg.seed)
+    if cfg.encoder_init:
+        pretrained.apply_encoder_init(
+            model, cfg.encoder_init,
+            encoder_name(cfg.model_type))
+        if verbose:
+            print(f"encoder initialized from {cfg.encoder_init}")
     optimizer = optim.make_optimizer(cfg, model, max_iter)
     generator = torch.Generator(dev)
     generator.manual_seed(cfg.seed + 1)
@@ -202,7 +222,7 @@ def train(cfg: CaptionConfig, *, device=None,
                 if verbose:
                     print(f"preemption checkpoint written at iter {it}")
                 break
-            model.freeze_encoder = it < frozen_until
+            model.freeze_encoder = encoder_frozen(cfg, it, frozen_until)
             t0 = time.perf_counter()
             metrics = run_step(item)
             last_loss = float(metrics["loss"])       # the step's end

@@ -1,11 +1,14 @@
 """The AlexCap optimizer — port of `imagecaptioning_tpu/train/optim.py`
-(`warmup_cosine`, `gate_until`, `make_optimizer`) for the LSTM families.
+(`warmup_cosine`, `gate_until`, `make_optimizer`) for the four families.
 
 The JAX chain is: global-norm clip over every gradient → two groups, the
-CNN trunk (`encoder`) and the rest (`head`), each Adam with the L2 decay
-added to the gradient before the moments (torch `Adam(weight_decay=...)`,
-`train_LSTM.py:59`) → the learning rate, constant or `warmup_cosine` on
-global time (`train_LSTM.py:57-75`).
+encoder (`encoder`: the CNN trunk `features`, or the ViT's `encoder_vit`)
+and the rest (`head`) → the learning rate, constant or `warmup_cosine`
+on global time (`train_LSTM.py:57-75`). Each group is:
+- LSTM families: Adam with the L2 decay added to the gradient before the
+  moments (torch `Adam(weight_decay=...)`, `train_LSTM.py:59`);
+- Transformer and ViT: AdamW, the decay decoupled: update = −lr·(m̂ /
+  (√v̂ + ε) + wd·p) (`train_Transformer.py:72-83`).
 
 - The clip is `clip_by_global_norm_`, which the train step calls over the
   model's gradients before the update (optax's formula: scaled to the
@@ -18,9 +21,16 @@ global time (`train_LSTM.py:57-75`).
   start at the boundary, as the gate's do. The lr schedule keeps global
   time for both groups: `AlexAdam` sets each group's lr from the count of
   updates taken, which it keeps in its state dict.
-- `finetune_cnn=False` leaves the trunk out of every group (optax's
-  `set_to_zero`); its gradients still enter the global norm.
-The Transformer and ViT families' AdamW groups come with Slice E.
+- A hard-zero encoder group (optax's `set_to_zero`: no update, no
+  decay, no state) is the encoder left out of every group; its gradients
+  still enter the global norm. That is the trunk with
+  `finetune_cnn=False`; the Transformer's trunk for the whole run (the
+  reference's encoder group has base lr 0, which LambdaLR scales, and
+  lr 0 kills the AdamW decay too, `train_Transformer.py:79-83`), though
+  after the finetune boundary it runs in training mode and its gradient
+  enters the clip; and the ViT's encoder with `trained_encoder`
+  (`requires_grad=False` for the whole run, `VitbModel.py:162-166`).
+  Without it, the ViT's encoder follows the LSTM's gate.
 """
 
 from __future__ import annotations
@@ -31,7 +41,9 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
-ENCODER_MODULES = ("features",)
+from imagecaptioning_tpu_torch.models.captioners import encoder_always_frozen
+
+ENCODER_MODULES = ("features", "encoder_vit")
 
 
 def warmup_cosine(lr: float, min_lr: float, warmup_steps: int,
@@ -56,10 +68,10 @@ def warmup_cosine(lr: float, min_lr: float, warmup_steps: int,
     return schedule
 
 
-class AlexAdam(torch.optim.Adam):
-    """torch Adam (additive L2 before the moments) whose groups' lr
-    follows `schedule` over the updates taken, the count kept in each
-    group (`updates`) so that a checkpoint resumes on the same lr."""
+class _Scheduled:
+    """A torch optimizer whose groups' lr follows `schedule` over the
+    updates taken, the count kept in each group (`updates`) so that a
+    checkpoint resumes on the same lr."""
 
     def __init__(self, groups, schedule: Callable[[int], float],
                  betas, eps: float, weight_decay: float):
@@ -77,17 +89,29 @@ class AlexAdam(torch.optim.Adam):
         return super().step(closure)
 
 
-def make_optimizer(cfg, model: torch.nn.Module,
-                   total_steps: int) -> AlexAdam:
-    """The update chain of a CaptionConfig over `model` (an
-    `LSTMCaptioner`): groups `head` and, when `finetune_cnn`, `encoder`
-    (the trunk, `features.*`), each with its parameter names. The gate's
-    boundary is the driver's: it freezes the encoder's gradient until
-    then."""
-    if cfg.model_type in ("transformer", "vitb"):
-        raise NotImplementedError(
-            f"the {cfg.model_type} family's AdamW groups are not ported yet "
-            f"(ROADMAP.md, Queue 1, Slice E — the other caption families)")
+class AlexAdam(_Scheduled, torch.optim.Adam):
+    """torch Adam (additive L2 before the moments), scheduled."""
+
+
+class AlexAdamW(_Scheduled, torch.optim.AdamW):
+    """torch AdamW (decoupled decay), scheduled."""
+
+
+def trains_encoder(cfg) -> bool:
+    """Whether the encoder has a group of its own: `finetune_cnn`, except
+    the Transformer's trunk and a `trained_encoder` ViT, which are a hard
+    zero for the whole run."""
+    if cfg.model_type == "transformer" or encoder_always_frozen(cfg):
+        return False
+    return cfg.finetune_cnn
+
+
+def make_optimizer(cfg, model: torch.nn.Module, total_steps: int):
+    """The update chain of a CaptionConfig over `model`: an `AlexAdam`
+    (LSTM families) or `AlexAdamW` (Transformer, ViT) with groups `head`
+    and, where `trains_encoder`, `encoder` (`features.*` or
+    `encoder_vit.*`), each with its parameter names. The gate's boundary
+    is the driver's: it freezes the encoder's gradient until then."""
     if cfg.grad_accum_steps > 1:
         raise NotImplementedError(
             "grad_accum_steps > 1 (optax.MultiSteps) is not ported yet "
@@ -105,12 +129,14 @@ def make_optimizer(cfg, model: torch.nn.Module,
             (name, p))
     groups = [{"group": "head", "names": [n for n, _ in named["head"]],
                "params": [p for _, p in named["head"]]}]
-    if cfg.finetune_cnn and named["encoder"]:
+    if trains_encoder(cfg) and named["encoder"]:
         groups.append({"group": "encoder",
                        "names": [n for n, _ in named["encoder"]],
                        "params": [p for _, p in named["encoder"]]})
-    return AlexAdam(groups, schedule, betas=(cfg.beta1, cfg.beta2),
-                    eps=cfg.eps, weight_decay=cfg.weight_decay)
+    adam = (AlexAdamW if cfg.model_type in ("transformer", "vitb")
+            else AlexAdam)
+    return adam(groups, schedule, betas=(cfg.beta1, cfg.beta2), eps=cfg.eps,
+                weight_decay=cfg.weight_decay)
 
 
 def global_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:

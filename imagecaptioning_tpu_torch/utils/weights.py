@@ -28,21 +28,31 @@
   numbers it, or the VGG trunk's `features.{idx}`; `llm.*`), after
   `export_sequential_resnet`, `export_bn` and `export_reference_lstm_head`
   (`utils/torch_port.py:637-662, 845-862, 751-762`).
-- `lstm_train_state_from_jax`: a JAX AlexCap LSTM training state (params,
-  BatchNorm statistics, the optax state of `make_optimizer`) → the port's
-  model and `AlexAdam` state dicts, Adam's moments and counts and the
-  frozen phase's gate carried over.
-- `load_lstm_checkpoint`: a port training checkpoint or a reference
-  `LSTMModel` state dict saved with `torch.save` → the model's state dict.
+- `captioner_train_state_from_jax`: a JAX AlexCap training state (params,
+  BatchNorm statistics, the optax state of `make_optimizer`) of any family
+  → the port's model and `AlexAdam`/`AlexAdamW` state dicts, the moments
+  and counts and the frozen phase's gate carried over.
+- `captioner_state_dict_from_jax`: the JAX params (and BatchNorm
+  statistics) of any AlexCap family → the port's state dict: the
+  attention head's `llm.{init_h, init_c, embedding, attention.{W,U,v},
+  f_beta, deep_output, lstm}` (`export_reference_attention_head`,
+  :711-733), the Transformer's `llm.{fc.0, encoder, decoder}`
+  (`export_reference_transformer`, :789-802), the ViT's `encoder_vit.*`
+  in torchvision's `vit_b_16` names (`export_vit`, :689-727) and its
+  `decoder.*` (`export_reference_vitb_decoder`);
+  `load_alexcap_checkpoint` reads a port checkpoint or a
+  reference state dict of any family (VitbModel's `proj.*`,
+  `class_token` and `encoder.*` → `encoder_vit.conv_proj.*`, … as
+  `convert_reference_captioner`, :506-597, renames them).
 - `seeded_init_`: random weights from a seed, for serving or training
   without a trained checkpoint (a model's `ZERO_INIT` parameters stay
-  zero; BatchNorm weights 1 and biases 0, torch's init).
+  zero; BatchNorm and LayerNorm weights 1 and biases 0, torch's init).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -161,11 +171,33 @@ def _transformer_block_state_dict(block: Mapping, prefix: str
     return sd
 
 
+def transformer_decoder_state_dict(dec: Mapping, prefix: str
+                                   ) -> Dict[str, torch.Tensor]:
+    """A `Decoder`'s params → the reference decoder's keys under
+    `prefix`."""
+    sd = {f"{prefix}.word_embedding.weight": _t(
+              dec["word_embedding"]["embedding"]),
+          f"{prefix}.position_embedding.weight": _t(
+              dec["position_embedding"])}
+    sd.update(_linear(dec["fc_out"], f"{prefix}.fc_out"))
+    i = 0
+    while f"layer_{i}" in dec:
+        layer, t = dec[f"layer_{i}"], f"{prefix}.layers.{i}"
+        sd.update(_norm(layer["norm"], f"{t}.norm"))
+        sd.update(_attention_state_dict(layer["attention"],
+                                        f"{t}.attention"))
+        sd.update(_transformer_block_state_dict(layer["transformer_block"],
+                                                f"{t}.transformer_block"))
+        i += 1
+    return sd
+
+
 def transformer_head_state_dict(params: Mapping, prefix: str = "llm"
                                 ) -> Dict[str, torch.Tensor]:
-    """The GT transformer head's params ({fc, encoder, decoder}) → the
-    reference AlexTransformer's keys (`fc.0`, `encoder.*`, `decoder.*`)."""
-    enc, dec = params["encoder"], params["decoder"]
+    """A transformer head's params ({fc, encoder, decoder}: the GT head's
+    or the AlexCap Transformer's) → the reference's keys (`fc.0`,
+    `encoder.*`, `decoder.*`)."""
+    enc = params["encoder"]
     sd = _linear(params["fc"], f"{prefix}.fc.0")
     sd[f"{prefix}.encoder.position_embedding.weight"] = _t(
         enc["position_embedding"])
@@ -174,20 +206,8 @@ def transformer_head_state_dict(params: Mapping, prefix: str = "llm"
         sd.update(_transformer_block_state_dict(
             enc[f"layer_{i}"], f"{prefix}.encoder.layers.{i}"))
         i += 1
-    sd[f"{prefix}.decoder.word_embedding.weight"] = _t(
-        dec["word_embedding"]["embedding"])
-    sd[f"{prefix}.decoder.position_embedding.weight"] = _t(
-        dec["position_embedding"])
-    sd.update(_linear(dec["fc_out"], f"{prefix}.decoder.fc_out"))
-    i = 0
-    while f"layer_{i}" in dec:
-        layer, t = dec[f"layer_{i}"], f"{prefix}.decoder.layers.{i}"
-        sd.update(_norm(layer["norm"], f"{t}.norm"))
-        sd.update(_attention_state_dict(layer["attention"],
-                                        f"{t}.attention"))
-        sd.update(_transformer_block_state_dict(layer["transformer_block"],
-                                                f"{t}.transformer_block"))
-        i += 1
+    sd.update(transformer_decoder_state_dict(params["decoder"],
+                                             f"{prefix}.decoder"))
     return sd
 
 
@@ -314,33 +334,130 @@ def resnet_state_dict(params: Mapping, stats: Mapping,
     return sd
 
 
+def _trunk_state_dict(params: Mapping, batch_stats: Optional[Mapping]
+                      ) -> Dict[str, torch.Tensor]:
+    """The CNN captioners' `features`: ResNet (with its statistics) or
+    VGG."""
+    if "bn1" in params["features"]:
+        return resnet_state_dict(params["features"], batch_stats["features"])
+    return vgg_features_state_dict(params["features"])
+
+
 def lstm_captioner_state_dict_from_jax(params: Mapping,
                                        batch_stats: Mapping
                                        ) -> Dict[str, torch.Tensor]:
     """JAX `LSTMCaptioner` params and `batch_stats` → the port's
     state_dict, weights and BatchNorm running statistics, in the reference
     `LSTMModel` key layout (a VGG trunk has no statistics)."""
-    if "bn1" in params["features"]:
-        sd = resnet_state_dict(params["features"], batch_stats["features"])
-    else:
-        sd = vgg_features_state_dict(params["features"])
+    sd = _trunk_state_dict(params, batch_stats)
     sd.update(language_head_state_dict(params["llm"]))
     return sd
 
 
-def lstm_train_state_from_jax(params: Mapping, batch_stats: Mapping,
-                              opt_state, optimizer) -> Tuple[Dict, Dict]:
-    """A JAX AlexCap LSTM training state → (the port's model state_dict,
-    the state dict for `optimizer`, an `AlexAdam` that `make_optimizer`
-    built over the port's model).
+def attention_head_state_dict(params: Mapping, prefix: str = "llm"
+                              ) -> Dict[str, torch.Tensor]:
+    """AttentionHead params → the reference Show-Attend-Tell decoder's
+    keys (its `nn.LSTMCell` as `lstm.weight_ih` …)."""
+    sd = _linear(params["init_h"], f"{prefix}.init_h")
+    sd.update(_linear(params["init_c"], f"{prefix}.init_c"))
+    sd[f"{prefix}.embedding.weight"] = _t(params["embedding"]["embedding"])
+    for torch_name, jax_name in (("attention.W", "att_W"),
+                                 ("attention.U", "att_U"),
+                                 ("attention.v", "att_v"),
+                                 ("f_beta", "f_beta"),
+                                 ("deep_output", "deep_output")):
+        sd.update(_linear({"kernel": params[f"{jax_name}_kernel"],
+                           "bias": params[f"{jax_name}_bias"]},
+                          f"{prefix}.{torch_name}"))
+    for torch_name, jax_name in (("weight_ih", "cell_w_ih"),
+                                 ("weight_hh", "cell_w_hh"),
+                                 ("bias_ih", "cell_b_ih"),
+                                 ("bias_hh", "cell_b_hh")):
+        sd[f"{prefix}.lstm.{torch_name}"] = _t(params[jax_name])
+    return sd
 
-    `opt_state` is `make_optimizer`'s optax state: the clip's, then the
-    `multi_transform` over `encoder` and `head`, each a chain whose Adam
-    state (`ScaleByAdamState`) is found inside, the encoder's behind
-    `gate_until`'s count. An Adam that has not yet taken a step (the
-    encoder before the finetune boundary) leaves its parameters without
-    state, as torch's Adam leaves a parameter that has had no gradient.
-    Each group's `updates` is the head's Adam count: the updates taken."""
+
+def vit_state_dict(params: Mapping, prefix: str = "encoder_vit"
+                   ) -> Dict[str, torch.Tensor]:
+    """ViTEncoder params → torchvision `vit_b_16` keys under `prefix`:
+    flax's per-head q/k/v kernels (D, h, d) become one `in_proj_weight`
+    (3D, D), its out kernel (h, d, D) `out_proj.weight` (D, D)."""
+    sd = _conv(params["conv_proj"], f"{prefix}.conv_proj")
+    sd[f"{prefix}.class_token"] = _t(params["class_token"])
+    sd[f"{prefix}.encoder.pos_embedding"] = _t(params["pos_embedding"])
+    sd.update(_norm(params["ln"], f"{prefix}.encoder.ln"))
+    i = 0
+    while f"encoder_layer_{i}" in params:
+        lp, t = (params[f"encoder_layer_{i}"],
+                 f"{prefix}.encoder.layers.encoder_layer_{i}")
+        attn = lp["self_attention"]
+        qkv = [np.asarray(attn[n]["kernel"]) for n in ("query", "key",
+                                                       "value")]
+        d = qkv[0].shape[0]
+        sd[f"{t}.self_attention.in_proj_weight"] = _t(np.concatenate(
+            [k.reshape(d, d).T for k in qkv]))
+        sd[f"{t}.self_attention.in_proj_bias"] = _t(np.concatenate(
+            [np.asarray(attn[n]["bias"]).reshape(d)
+             for n in ("query", "key", "value")]))
+        sd.update(_linear({"kernel": np.asarray(attn["out"]["kernel"])
+                           .reshape(d, d), "bias": attn["out"]["bias"]},
+                          f"{t}.self_attention.out_proj"))
+        sd.update(_norm(lp["ln_1"], f"{t}.ln_1"))
+        sd.update(_norm(lp["ln_2"], f"{t}.ln_2"))
+        sd.update(_linear(lp["mlp_0"], f"{t}.mlp.0"))
+        sd.update(_linear(lp["mlp_3"], f"{t}.mlp.3"))
+        i += 1
+    return sd
+
+
+def _captioner_family(params: Mapping) -> str:
+    """The AlexCap family of a JAX captioner's params tree (`model_type`)."""
+    if "encoder_vit" in params:
+        return "vitb"
+    if "decoder" in params:
+        return "transformer"
+    if "att_W_kernel" in params["llm"]:
+        return "lstm_attention"
+    return "lstm"
+
+
+def captioner_state_dict_from_jax(params: Mapping,
+                                  batch_stats: Optional[Mapping] = None
+                                  ) -> Dict[str, torch.Tensor]:
+    """The JAX params (and BatchNorm statistics, for a ResNet trunk) of
+    any AlexCap captioner → the port's state dict."""
+    family = _captioner_family(params)
+    if family == "vitb":
+        sd = vit_state_dict(params["encoder_vit"])
+        sd.update(transformer_decoder_state_dict(params["decoder"],
+                                                 "decoder"))
+        return sd
+    sd = _trunk_state_dict(params, batch_stats)
+    if family == "transformer":
+        sd.update(transformer_head_state_dict(params))
+    elif family == "lstm_attention":
+        sd.update(attention_head_state_dict(params["llm"]))
+    else:
+        sd.update(language_head_state_dict(params["llm"]))
+    return sd
+
+
+def captioner_train_state_from_jax(params: Mapping,
+                                   batch_stats: Optional[Mapping], opt_state,
+                                   optimizer) -> Tuple[Dict, Dict]:
+    """A JAX AlexCap training state → (the port's model state_dict, the
+    state dict for `optimizer`, an `AlexAdam` or `AlexAdamW` that
+    `make_optimizer` built over the port's model).
+
+    `opt_state` is `make_optimizer`'s optax state: the clip's (where
+    `clip_grad`), then the `multi_transform` over `encoder` and `head`,
+    each a chain whose Adam state (`ScaleByAdamState`) is found inside,
+    the encoder's behind `gate_until`'s count; a hard-zero group has none,
+    and the port's optimizer no such group. An Adam that has not yet
+    taken a step (the encoder before the finetune boundary) leaves its
+    parameters without state, as torch's Adam leaves a parameter that
+    has had no gradient. Each group's `updates` is the head's Adam count:
+    the updates taken."""
     def adam_state(tree):
         if hasattr(tree, "mu") and hasattr(tree, "nu"):
             return tree
@@ -360,12 +477,13 @@ def lstm_train_state_from_jax(params: Mapping, batch_stats: Mapping,
             return adam_state(tree.inner_state)
         return None
 
-    inner = next(t for t in opt_state if hasattr(t, "inner_states"))
+    inner = (opt_state if hasattr(opt_state, "inner_states") else
+             next(t for t in opt_state if hasattr(t, "inner_states")))
     adams = {name: adam_state(inner.inner_states[name])
              for name in inner.inner_states}
 
     def convert(tree):
-        return lstm_captioner_state_dict_from_jax(tree, batch_stats)
+        return captioner_state_dict_from_jax(tree, batch_stats)
     opt_sd = optimizer.state_dict()
     updates = int(adams["head"].count)
     state = {}
@@ -383,12 +501,26 @@ def lstm_train_state_from_jax(params: Mapping, batch_stats: Mapping,
     return convert(params), opt_sd
 
 
-def load_lstm_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+def load_alexcap_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """The model state dict of a port training checkpoint (its `model`
-    entry), or a reference `LSTMModel` state dict saved with
-    `torch.save`."""
+    entry), or of a reference AlexCap model's `state_dict()` saved with
+    `torch.save`: the CNN families' keys are the port's; VitbModel's
+    torchvision pieces (`proj.*`, `class_token`, `encoder.*`) go under
+    `encoder_vit.`, `proj` renamed `conv_proj` (VitbModel.py:159)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    return sd["model"] if isinstance(sd.get("model"), Mapping) else sd
+    if isinstance(sd.get("model"), Mapping):
+        return sd["model"]
+    if "class_token" not in sd:
+        return sd
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("proj."):
+            k = "encoder_vit.conv_proj." + k[len("proj."):]
+        elif k == "class_token" or k.startswith("encoder."):
+            k = "encoder_vit." + k
+        out[k] = v
+    return out
+
 
 
 def load_gt_checkpoint(path: str) -> Dict[str, torch.Tensor]:
@@ -412,14 +544,19 @@ def load_gt_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
     """Fill every parameter from one seeded generator on the parameters'
     device: U(−1/√fan_in, 1/√fan_in) with the fan-in of the tensor's
-    weight (torch's nn.Linear bound), biases included; those whose names
-    start with an entry of the module's `ZERO_INIT` (the RPN's deltas
-    and box refinement, zero-initialised in JAX) are zeroed. Returns
-    `module`."""
+    weight (torch's nn.Linear bound), biases included; BatchNorm and
+    LayerNorm scales 1 and shifts 0 (torch's and flax's init: a scale
+    drawn from ±1/√E would shrink every normalized activation to about
+    1/√E of its size, and a transformer's decode would all but ignore its
+    image); those
+    whose names start with an entry of the module's `ZERO_INIT` (the
+    RPN's deltas and box refinement, zero-initialised in JAX) are zeroed.
+    Returns `module`."""
     zero = getattr(module, "ZERO_INIT", ())
     params = dict(module.named_parameters())
     norms = {f"{n}.{k}" for n, m in module.named_modules()
-             if isinstance(m, nn.modules.batchnorm._BatchNorm)
+             if isinstance(m, (nn.modules.batchnorm._BatchNorm,
+                               nn.LayerNorm))
              for k in ("weight", "bias")}
     gen = torch.Generator(device=next(iter(params.values())).device)
     gen.manual_seed(seed)

@@ -6,8 +6,9 @@ fp32 on the CPU.
   moments) against optax over 6-8 updates spanning `finetune_start`, with
   a constant lr and with `use_scheduler` (warmup + cosine on global
   time): params within 1e-6; the encoder's Adam state absent before the
-  boundary and counted from it; `lstm_train_state_from_jax` carrying a
-  JAX state across the boundary, then the same updates within 1e-6;
+  boundary and counted from it; `captioner_train_state_from_jax`
+  carrying a JAX state across the boundary, then the same updates within
+  1e-6;
 - two full train steps (uint8 → preprocess → forward → loss → backward →
   clip → Adam → BatchNorm statistics) against `make_train_step`: losses
   within 1e-5 relative, weights and running statistics within 1e-5, the
@@ -25,7 +26,7 @@ fp32 on the CPU.
   batch cursor and ends on the uninterrupted run's loss; the
   `train_LSTM --smoke` and `infer --model-type lstm` CLIs on the CPU;
   both raise without a card unless asked for the CPU; the knobs that wait
-  for ROADMAP Queue 1, item 2 raise.
+  for ROADMAP Queue 1, item 2 raise (not `encoder_init`, ported since).
 """
 
 import dataclasses
@@ -60,13 +61,12 @@ from imagecaptioning_tpu_torch.data.loader import AlexDataLoader
 from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
 from imagecaptioning_tpu_torch.eval import cider, scorer
 from imagecaptioning_tpu_torch.eval.eval_split import eval_split
-from imagecaptioning_tpu_torch.models.captioners import (LSTMCaptioner,
-                                                         build_model)
+from imagecaptioning_tpu_torch.models.captioners import LSTMCaptioner
 from imagecaptioning_tpu_torch.train import cli, driver, optim
 from imagecaptioning_tpu_torch.train.step import make_train_step
 from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
 from imagecaptioning_tpu_torch.utils.weights import (
-    lstm_captioner_state_dict_from_jax, lstm_train_state_from_jax)
+    captioner_train_state_from_jax, lstm_captioner_state_dict_from_jax)
 
 STAGES = (1, 1, 1, 1)
 WIDTHS = dict(embedding_size=16, lstm_size=16)
@@ -197,10 +197,13 @@ def test_optimizer_without_finetune_leaves_the_trunk_alone():
     _port_step(model, opt, grads[0], frozen=False)
     np.testing.assert_array_equal(model.features["w"].detach().numpy(),
                                   params["features"]["w"])
-    for cfg, err in ((pc.replace(model_type="transformer"), "Slice E"),
-                     (pc.replace(grad_accum_steps=2), "item 2")):
-        with pytest.raises(NotImplementedError, match=err):
-            optim.make_optimizer(cfg, model, 4)
+    # the Transformer's trunk is a hard zero whatever finetune_cnn says
+    opt = optim.make_optimizer(pc.replace(model_type="transformer",
+                                          finetune_cnn=True), model, 4)
+    assert isinstance(opt, optim.AlexAdamW)
+    assert [g["group"] for g in opt.param_groups] == ["head"]
+    with pytest.raises(NotImplementedError, match="item 2"):
+        optim.make_optimizer(pc.replace(grad_accum_steps=2), model, 4)
 
 
 def _tiny_jax_state(x, gt, **kw):
@@ -232,7 +235,7 @@ def test_train_state_from_jax_carries_the_gate_across_the_boundary():
         params = _np(optax.apply_updates(params, upd))
     model = LSTMCaptioner(20, 16, 16, backbone_stages=STAGES)
     opt = optim.make_optimizer(pc, model, 10)
-    sd, opt_sd = lstm_train_state_from_jax(params, stats, state, opt)
+    sd, opt_sd = captioner_train_state_from_jax(params, stats, state, opt)
     model.load_state_dict(sd)
     opt.load_state_dict(opt_sd)
     assert not any(p in opt.state for p in model.features.parameters())
@@ -541,14 +544,16 @@ def test_log_every_sets_the_loss_log_stride(tmp_path):
 
 def test_unported_knobs_raise(tmp_path):
     cfg = _cfg(tmp_path)
-    for kw in ({"grad_accum_steps": 2}, {"encoder_init": "w.npz"},
-               {"tensorboard_dir": "tb"}, {"debug_nans": True}):
+    for kw in ({"grad_accum_steps": 2}, {"tensorboard_dir": "tb"},
+               {"debug_nans": True}):
         with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
             driver.train(cfg.replace(**kw), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
         driver.train(cfg, device="cpu", synthetic_learnable=True)
-    with pytest.raises(NotImplementedError, match="Slice E"):
-        build_model(cfg.replace(model_type="lstm_attention"), 10, 5)
+    # encoder_init is ported: a missing file is a file error, not a refusal
+    with pytest.raises(FileNotFoundError):
+        driver.train(cfg.replace(encoder_init=str(tmp_path / "w.npz")),
+                     device="cpu")
 
 
 def test_train_lstm_smoke_and_infer_on_the_cpu(tmp_path, monkeypatch):

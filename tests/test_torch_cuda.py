@@ -29,6 +29,11 @@ and 1e-8 in every gradient and BatchNorm statistic (fp64: a seeded ResNet
 in training mode amplifies fp32 rounding past any such bound); the
 resident store's batches equal to the streaming path's. The ROI backward
 at outputs beyond 32 a side or 256 cells (the general kernels) as at 7×7.
+The attention-LSTM, Transformer and ViT-B captioners (a cut ResNet, a
+2-layer ViT at 224²): fp32 logits and alphas within 1e-4 of the CPU's
+with greedy and beam-3 tokens identical; one train step after the
+finetune boundary in fp64 for the ResNet families as the LSTM's, and in
+fp32 for ViT-B with its encoder frozen (gradients within 1e-4).
 """
 
 import numpy as np
@@ -584,3 +589,119 @@ def test_resident_store_on_card_matches_streaming(card):
         want_images, want_labels = next(stream)
         assert np.array_equal(images.cpu().numpy(), want_images)
         assert np.array_equal(labels.cpu().numpy(), want_labels)
+
+
+# the attention-LSTM, Transformer and ViT-B families at a tiny size
+FAMILY_SETS = {
+    "lstm_attention": dict(embedding_size=16, lstm_size=16),
+    "transformer": dict(transformer_size=32, num_layers=2, num_heads=4),
+    "vitb": dict(vit_dims=(224, 16, 2, 2, 32, 64), embedding_size=32,
+                 num_layers=2, num_heads=4),
+}
+
+
+def _tiny_family(model_type, device, dtype=torch.float32):
+    from imagecaptioning_tpu_torch.config.configs import get_config
+    from imagecaptioning_tpu_torch.models.captioners import build_model
+    cfg = get_config(model_type).replace(
+        backbone_stages=(1, 1, 1, 1), compute_dtype="float32",
+        use_dropout=False, **FAMILY_SETS[model_type])
+    model = build_model(cfg, 30, 6, device=device)
+    model.encoder.compute_dtype = dtype
+    return cfg, model.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type", list(FAMILY_SETS))
+def test_tiny_family_on_card_matches_cpu(card, model_type):
+    """A tiny attention-LSTM, Transformer or ViT-B captioner in fp32 on the
+    card against the CPU on uint8 CelebA-size images, preprocess included:
+    teacher-forced logits and alphas, and the greedy and beam-3 decodes'
+    alphas, within 1e-4; greedy and beam-3 tokens identical."""
+    from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
+    twins = [_tiny_family(model_type, d)[1].eval()
+             for d in (torch.device("cpu"), card)]
+    twins[1].load_state_dict(seeded_init_(twins[0], 0).state_dict())
+    rng = np.random.RandomState(7)
+    images = torch.from_numpy(rng.randint(0, 256, (2, 218, 178, 3),
+                                          dtype=np.uint8))
+    gt = torch.from_numpy(rng.randint(1, 31, (2, 6)))
+    out = []
+    for model in twins:
+        d = next(model.parameters()).device
+        x = resnet_v2_preprocess(images.to(d))
+        with torch.no_grad():
+            tf = model(x, gt.to(d))
+            toks, alphas = api.make_greedy_fn(model, 7,
+                                              collect_alphas=True)(x)
+            beam = api.make_beam_fn(model, 7, 3, collect_alphas=True)(x)
+        out.append([t.cpu() for t in (tf.logits, tf.alphas, alphas,
+                                      beam.alphas, toks, beam.tokens)])
+    for got, want in zip(out[1][:4], out[0][:4]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(out[1][4], out[0][4])
+    assert torch.equal(out[1][5], out[0][5])
+
+
+def _tiny_family_step(model_type, device, dtype):
+    """One train step after the finetune boundary (a `trained_encoder`
+    ViT's encoder frozen) in `dtype` on `device` from seed 0's weights →
+    (loss, {name: gradient before the update}, {name: running statistic
+    after it}), on the CPU."""
+    from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
+    from imagecaptioning_tpu_torch.train import optim
+    from imagecaptioning_tpu_torch.train.step import make_train_step
+
+    rng = np.random.RandomState(8)
+    images = torch.from_numpy(rng.randint(0, 256, (2, 218, 178, 3),
+                                          dtype=np.uint8))
+    gt = torch.from_numpy(rng.randint(1, 31, (2, 6)))
+    seeded = seeded_init_(_tiny_family(model_type, torch.device("cpu"))[1],
+                          0).state_dict()
+    cfg, model = _tiny_family(model_type, device, dtype)
+    model.load_state_dict(seeded)
+    opt = optim.make_optimizer(cfg, model, 10)
+    grads = {}
+    opt.register_step_pre_hook(lambda *_: grads.update(
+        {n: p.grad.cpu().clone() for n, p in model.named_parameters()
+         if p.grad is not None}))
+    step = make_train_step(
+        model, opt, torch.Generator(device).manual_seed(0),
+        lambda u8: resnet_v2_preprocess(u8, dtype=dtype), clip_norm=1.0)
+    loss = float(step(images.to(device), gt.to(device))["loss"])
+    stats = {k: v.cpu() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return loss, grads, stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type", list(FAMILY_SETS))
+def test_tiny_family_train_step_on_card_matches_cpu(card, model_type):
+    """One train step after the finetune boundary on the card and on the
+    CPU from the same weights and batch: the ResNet families in fp64 (the
+    loss within 1e-10 relative, every gradient and running statistic
+    within 1e-8, as the LSTM's fp64 test), ViT-B with its encoder frozen
+    in fp32 (the loss within 1e-5 relative, every gradient within 1e-4 of
+    its tensor's largest); the attention score bias's gradient, zero but
+    for rounding, within the same bound of the step's largest."""
+    f64 = model_type != "vitb"
+    dtype, tol = (torch.float64, 1e-8) if f64 else (torch.float32, 1e-4)
+    (loss0, g0, s0), (loss1, g1, s1) = (
+        _tiny_family_step(model_type, d, dtype)
+        for d in (torch.device("cpu"), card))
+    assert abs(loss1 - loss0) <= (1e-10 if f64 else 1e-5) * abs(loss0)
+    assert sorted(g0) == sorted(g1) and g0
+    largest = max(float(w.abs().max()) for w in g0.values())
+    for name, want in g0.items():
+        if name == "llm.attention.v.bias":
+            # the softmax over positions ignores a shift of every score:
+            # zero but for rounding on both sides
+            assert max(float(g1[name].abs().max()),
+                       float(want.abs().max())) <= tol * largest
+            continue
+        torch.testing.assert_close(g1[name], want, rtol=tol,
+                                   atol=tol * float(want.abs().max()),
+                                   msg=name)
+    for name, want in s0.items():
+        torch.testing.assert_close(s1[name], want, rtol=1e-8, atol=1e-10,
+                                   msg=name)

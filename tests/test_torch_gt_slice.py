@@ -183,15 +183,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_infer.main(["--model-type", "gt", "--ckpt", "x.pth",
                          "--dicts", "x.json", "--images", "."])
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        port_infer.main(["--model-type", "lstm", "--ckpt", "x.pth",
-                         "--dicts", "x.json", "--images", "."])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_infer.main(["--model-type", "lstm_attention", "--ckpt", "x.pth",
-                         "--dicts", "x.json", "--images", "."])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_infer.main(["--model-type", "vitb", "--ckpt", "x.pth",
-                         "--dicts", "x.json", "--images", "."])
+    for model_type in ("lstm", "lstm_attention", "transformer", "vitb"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            port_infer.main(["--model-type", model_type, "--ckpt", "x.pth",
+                             "--dicts", "x.json", "--images", "."])
 
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "imagecaptioning_tpu"}
@@ -201,6 +196,11 @@ def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "imagecaptioning_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
+    port = REPO / "imagecaptioning_tpu_torch"
+    for name in ("models/backbones/vit.py", "utils/pretrained.py",
+                 "train_LSTMwAttention.py", "train_Transformer.py",
+                 "train_ViTB.py", "models/captioners.py", "models/heads.py"):
+        assert port / name in files, name
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
