@@ -2,9 +2,10 @@
 """Card smoke run of the PyTorch port (imagecaptioning_tpu_torch): GT-box
 dense-caption serving and training on one CUDA card, with the LSTM head
 (phases 4–9) and the transformer head (phases 10–11), the full RPN
-DenseCap model's training and serving (phases 12–15), and the four
+DenseCap model's training and serving (phases 12–15), the four
 AlexCap families: the LSTM captioner on ResNet-101 (phases 16–18), the
-attention-LSTM (19), the Transformer (20) and ViT-B (21).
+attention-LSTM (19), the Transformer (20) and ViT-B (21), and gradient
+accumulation in the RPN (22) and AlexCap LSTM (23) trainers.
 
     python3 chip_smoke.py
 
@@ -166,14 +167,36 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    restored bitwise; one train step after the boundary, dropout off, on
    the card against the CPU, each gradient as in 9: the ResNet families
    in fp64 (their trunk in training mode, as phase 18 finds), ViT-B in
-   fp32.
-Every line of phases 4–21 carries the card's name and power limit. The
+   fp32;
+22. RPN training at grad_accum_steps 2 (`get_densecap_config()` as in
+   13, bf16 over fp32 masters) on `make_learnable_vg_arrays(16, 720²)`,
+   4 images a micro-step: 2 warm-up updates, then 3 windows of 6 applied
+   updates timed by events (ms an update, images/s, peak GB); K1, A and B
+   launched twice an applied update (their counts over the windows); the
+   busy ms of a profiled update; the first and last window's mean loss;
+   then one update from two micro-steps in fp32 on the card against the
+   CPU, held as in 14 (the averaged gradient before the update);
+23. the AlexCap LSTM captioner at grad_accum_steps 2 (`get_lstm_config()`,
+   batch 12 a micro-step) on `make_learnable_face2text_arrays(120)` staged
+   on the card, with the driver's rules: the finetune boundary at
+   micro-step 5 rounds up to 6, so the trunk is bitwise unchanged through
+   applied update 3 and moves at each from 4 on, never mid-window, and
+   BatchNorm's statistics move at every micro-step after the boundary; ms
+   and images/s an update, frozen and finetuned; the mean loss of the last
+   5 of 12 updates below the first 5's; a checkpoint saved one micro-step
+   into a window, restored, and the window finished bitwise as without
+   the stop; one update from two micro-steps in fp64 on the card against
+   the CPU, held as in 18; and, as information, whether
+   `torch.utils.tensorboard` and `h5py` import.
+Every line of phases 4–23 carries the card's name and power limit. The
 kernels line counts each kernel's launches over every path that runs it
 (`launches`, split in `launches_by_path`): the fused forward in both GT
 heads' serving and training and in RPN training (`rpn_training`, one a
 step) and serving (`rpn_serving`, one a call); kernel A in both GT heads'
 training and in RPN training; kernel B in RPN training, its only main
 path (its numbers there are the RPN shape's; K1's and A's `rpn_shape`);
+all three in phase 22, twice an applied update (`rpn_training_k2`,
+`launches_per_applied_update_k2`);
 the AlexCap paths launch none of them (`alexcap_serving`,
 `alexcap_training`, and `alexcap_<family>_serving` and `_training` for
 the other three: 0).
@@ -1019,28 +1042,35 @@ def move_box_heads_(model, seed):
     return model
 
 
-def step_grads(dev, kind, dtype="float32", state=None):
-    """One train step of `kind` (`train_setup`) at full width on `dev` in
-    `dtype`, from phase 9's small input with dropout off; the RPN's sampler
-    takes fixed keys. The weights are seed 0's, the RPN's box heads moved
-    off zero, or `state`. → (the weights before the step as a CPU state
-    dict, the model after it, its loss dict, {name: the gradient before
-    the update, on the CPU})."""
+def step_grads(dev, kind, dtype="float32", state=None, accum=1):
+    """One train update of `kind` (`train_setup`) at full width on `dev` in
+    `dtype`, from `accum` micro-steps (phase 22: 2; else 1) on phase 9's
+    small input and, after it, inputs drawn alike, dropout off; the RPN's
+    sampler takes fixed keys. The weights are seed 0's, the RPN's box heads
+    moved off zero, or `state`. → (the weights before the update as a CPU
+    state dict, the model after it, the last micro-step's loss dict,
+    {name: the gradient the update took, the micro-steps' mean, on the
+    CPU})."""
     from imagecaptioning_tpu_torch.train import dense_driver as dd
     from imagecaptioning_tpu_torch.utils.weights import seeded_init_
 
     cfg, build_model, make_step, _ = train_setup(dev, kind)
-    cfg = cfg.replace(compute_dtype=dtype, param_dtype=dtype)
+    cfg = cfg.replace(compute_dtype=dtype, param_dtype=dtype,
+                      grad_accum_steps=accum)
     rng = np.random.RandomState(SEED + 3)
-    images = torch.from_numpy(rng.randint(0, 256, (2, 96, 96, 3),
-                                          dtype=np.uint8))
-    boxes = torch.from_numpy(edge_boxes(rng, 2, 8, 96, 96))
-    labels = torch.from_numpy(rng.randint(1, VOCAB + 1, (2, 8, SEQ)))
-    labels[:, :, 9:] = 0
-    mask = torch.ones(2, 8)
-    mask[1, 7] = 0.0
-    # 96² at stride 16 (the RPN's trunk): 6 × 6 positions, 12 anchors each
-    keys = torch.from_numpy(rng.rand(2, 2, 6 * 6 * 12).astype(np.float32))
+
+    def draw():
+        images = torch.from_numpy(rng.randint(0, 256, (2, 96, 96, 3),
+                                              dtype=np.uint8))
+        boxes = torch.from_numpy(edge_boxes(rng, 2, 8, 96, 96))
+        labels = torch.from_numpy(rng.randint(1, VOCAB + 1, (2, 8, SEQ)))
+        labels[:, :, 9:] = 0
+        mask = torch.ones(2, 8)
+        mask[1, 7] = 0.0
+        # 96² at stride 16 (the RPN's trunk): 6 × 6 positions, 12 anchors
+        keys = torch.from_numpy(rng.rand(2, 2, 6 * 6 * 12).astype(np.float32))
+        return images, boxes, labels, mask, keys
+    inputs = [draw() for _ in range(accum)]
     model = build_model(cfg, VOCAB, SEQ, dev)
     if state is None:
         seeded_init_(model, SEED)
@@ -1059,8 +1089,12 @@ def step_grads(dev, kind, dtype="float32", state=None):
         {n: p.grad.detach().cpu().clone()
          for n, p in model.named_parameters() if p.grad is not None}))
     step = make_step(model, opt, torch.Generator(dev).manual_seed(SEED))
-    out = step(images.to(dev), boxes.to(dev), labels.to(dev), mask.to(dev),
-               tuple(keys.to(dev)) if kind == "rpn" else None)
+    for images, boxes, labels, mask, keys in inputs:
+        out = step(images.to(dev), boxes.to(dev), labels.to(dev),
+                   mask.to(dev),
+                   tuple(keys.to(dev)) if kind == "rpn" else None)
+    if not grads:
+        raise AssertionError(f"{accum} micro-steps applied no update")
     return state, model, {k: float(v) for k, v in out.items()}, grads
 
 
@@ -1079,7 +1113,7 @@ def grad_agreement(got, want):
 
 
 def train_step_check(dev, kind="lstm", label="train step (fp32 card vs "
-                     "CPU, full width)", card=""):
+                     "CPU, full width)", card="", accum=1):
     """One fp32 train step at full width on the card vs the CPU from the
     same weights, small input, dropout off on both (phase 9; 11 with the
     transformer head; 14 with the RPN model, its box heads moved off zero
@@ -1093,12 +1127,14 @@ def train_step_check(dev, kind="lstm", label="train step (fp32 card vs "
     less than lr whatever g is, so the weights alone cannot show a wrong
     gradient. The share allows for ReLUs whose input lies within rounding
     of zero: where the card and the CPU disagree on its sign, one unit's
-    gradient (a channel's bias and weights) differs by up to ~1e-2."""
+    gradient (a channel's bias and weights) differs by up to ~1e-2. With
+    `accum` micro-steps an update (phase 22), the gradient held is their
+    mean, and the loss the last micro-step's."""
     cfg = train_setup(dev, kind)[0]
     state, cpu_model, cpu_losses, cpu_grads = step_grads(
-        torch.device("cpu"), kind)
-    _, card_model, card_losses, card_grads = step_grads(dev, kind,
-                                                        state=state)
+        torch.device("cpu"), kind, accum=accum)
+    _, card_model, card_losses, card_grads = step_grads(
+        dev, kind, state=state, accum=accum)
     loss_rel = max(abs(card_losses[k] - v) / max(abs(v), 1e-30)
                    for k, v in cpu_losses.items() if v != 0.0)
     zero_ok = all(card_losses[k] == 0.0 for k, v in cpu_losses.items()
@@ -1117,7 +1153,8 @@ def train_step_check(dev, kind="lstm", label="train step (fp32 card vs "
         off += int((d > 1e-7).sum())
         total += d.numel()
     top = sorted(grad_err, key=lambda n: -grad_off[n] - grad_err[n])[:6]
-    res = {"card": card, "loss_cpu": cpu_losses["total"],
+    res = {"card": card, "micro_steps": accum,
+           "loss_cpu": cpu_losses["total"],
            "loss_card": card_losses["total"], "loss_rel_err": loss_rel,
            "grads_compared": len(grad_err),
            "grad_share_over_tol_max": max(grad_off.values(), default=None),
@@ -1436,7 +1473,7 @@ def describe(cfg, model) -> str:
                  f"{vit.encoder.pos_embedding.shape[1]} tokens; bf16)")
         head = (f"{cfg.num_layers}-layer decoder at {cfg.embedding_size}, "
                 f"{cfg.num_heads} heads, FFN {4 * cfg.embedding_size}")
-    return (f"{trunk} + {head}, vocab {ALEX_VOCAB}+3; "
+    return (f"{trunk} + {head}, vocab {model.spec.vocab_size}+3; "
             f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
             f"params")
 
@@ -1787,21 +1824,24 @@ def alexcap_train(dev, roi, out_dir: Path, card="", model_type="lstm"):
 
 
 def alexcap_step_grads(dev, state=None, dtype=torch.float32, perturb=0.0,
-                       model_type="lstm"):
+                       model_type="lstm", accum=1):
     """One train step of an AlexCap family at full width in `dtype` (fp32
     or fp64: weights, statistics, preprocess, encoder, head and loss), after
     the finetune boundary (a `trained_encoder` ViT's encoder frozen), its
     dropout off, on `dev` from seed 0's weights (or `state`) on 2 uint8
     CelebA-size images, their preprocessed pixels moved by `perturb`
-    relative noise → (weights before as a CPU state dict, the model after,
-    the loss, {name: the gradient before the update, on the CPU})."""
+    relative noise; with `accum` = 2 (phase 23) the same images one a
+    micro-step, one update → (weights before as a CPU state dict, the model
+    after, the last micro-step's loss, {name: the gradient the update took,
+    on the CPU})."""
     from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
     from imagecaptioning_tpu_torch.models.captioners import build_model
     from imagecaptioning_tpu_torch.train import optim
     from imagecaptioning_tpu_torch.train.step import make_train_step
     from imagecaptioning_tpu_torch.utils.weights import seeded_init_
 
-    cfg = alexcap_cfg(model_type, compute_dtype="float32", use_dropout=False)
+    cfg = alexcap_cfg(model_type, compute_dtype="float32", use_dropout=False,
+                      grad_accum_steps=accum)
     rng = np.random.RandomState(SEED + 19)
     images = torch.from_numpy(rng.randint(0, 256, (2, *ALEX_HW, 3),
                                           dtype=np.uint8))
@@ -1823,12 +1863,19 @@ def alexcap_step_grads(dev, state=None, dtype=torch.float32, perturb=0.0,
         {n: p.grad.detach().cpu().clone()
          for n, p in model.named_parameters() if p.grad is not None}))
 
+    seen = [0]                  # images preprocessed so far
+
     def preprocess(u8):
         x = resnet_v2_preprocess(u8, dtype=dtype)
-        return x * (1 + perturb * noise.to(u8.device))
+        rows = noise[seen[0]:seen[0] + u8.shape[0]]
+        seen[0] += u8.shape[0]
+        return x * (1 + perturb * rows.to(u8.device))
     step = make_train_step(model, opt, torch.Generator(dev).manual_seed(SEED),
                            preprocess, clip_norm=cfg.grad_clip_norm)
-    out = step(images.to(dev), labels.to(dev))
+    for rows in torch.arange(2).chunk(accum):
+        out = step(images[rows].to(dev), labels[rows].to(dev))
+    if not grads:
+        raise AssertionError(f"{accum} micro-steps applied no update")
     return state, model, float(out["loss"]), grads
 
 
@@ -2035,6 +2082,323 @@ def family_step_check(dev, model_type, card=""):
     return res
 
 
+# --------------------------- phases 22-23: gradient accumulation (k = 2)
+
+ACCUM = 2
+# phase 22: learnable VG images at 720², their 4 regions each; warm-up
+# updates, then windows of updates, each timed by events
+RPN_ACCUM_IMAGES, RPN_ACCUM_REGIONS = 16, 4
+RPN_ACCUM_WARMUP, RPN_ACCUM_UPDATES, RPN_ACCUM_WINDOWS = 2, 6, 3
+ACCUM_KERNELS = ("roi_align_batch_chw", "roi_align_bwd_features",
+                 "roi_align_bwd_boxes")
+# phase 23: learnable Face2Text images; the finetune boundary at this
+# micro-step rounds up to the next window's edge; applied updates in all,
+# the first warm-up and timed ones frozen, then the finetune phase's
+ALEX_ACCUM_IMAGES, ALEX_ACCUM_BOUNDARY = 120, 5
+ALEX_ACCUM_UPDATES, ALEX_ACCUM_LOSS_UPDATES = 12, 5
+
+
+def importable(name: str):
+    """True, or why `name` does not import (phase 23 prints it)."""
+    import importlib
+    try:
+        importlib.import_module(name)
+        return True
+    except Exception as e:          # any failure to import is the answer
+        return f"{type(e).__name__}: {e}"[:160]
+
+
+def rpn_accum_train(dev, roi, out_dir: Path, card=""):
+    """Phase 22: RPN DenseCap training at grad_accum_steps = ACCUM, at full
+    width (`get_densecap_config()`: VGG16 at 720², 12 anchors, 128 + 128
+    sampled regions, LSTM 512), bf16 over fp32 masters, on
+    `make_learnable_vg_arrays(16, 720²)` (12 train images: the encoder's
+    lr from applied update 6 on), batch TRAIN_BATCH a micro-step:
+    RPN_ACCUM_WARMUP warm-up updates, then RPN_ACCUM_WINDOWS windows of
+    RPN_ACCUM_UPDATES applied updates timed by events (ms an update,
+    images/s, peak GB); the ROI kernels' launches an applied update, read
+    from the wrappers' counts over the windows (each must be ACCUM); the
+    card's busy ms of a profiled update (median of PROFILED_CALLS); the
+    first and last window's mean loss."""
+    from imagecaptioning_tpu_torch.config.dense_configs import \
+        get_densecap_config
+    from imagecaptioning_tpu_torch.data import synthetic
+    from imagecaptioning_tpu_torch.data.vg_loader import VGDataLoader
+    from imagecaptioning_tpu_torch.train import dense_driver as dd
+    from imagecaptioning_tpu_torch.train.optim import applied_updates
+    from imagecaptioning_tpu_torch.utils.weights import seeded_init_
+
+    cfg = get_densecap_config().replace(grad_accum_steps=ACCUM,
+                                        batch_size=TRAIN_BATCH,
+                                        max_regions=RPN_ACCUM_REGIONS)
+    arrays, info = synthetic.make_learnable_vg_arrays(
+        num_images=RPN_ACCUM_IMAGES, image_size=TRAIN_IMAGE, seed=SEED)
+    loader = VGDataLoader(arrays=arrays, info=info)
+    model = seeded_init_(dd.build_rpn_model(cfg, loader.getVocabSize(),
+                                            loader.getSeqLength(), dev), SEED)
+    boundary = applied_updates(len(loader.train_ix), ACCUM)
+    opt = dd.make_dense_optimizer(cfg, model, boundary)
+    gen = torch.Generator(dev)
+    gen.manual_seed(SEED + 1)
+    step = dd.make_rpn_train_step(model, opt, gen)
+
+    def batches():
+        while True:
+            yield from loader.padded_batches(0, TRAIN_BATCH,
+                                             RPN_ACCUM_REGIONS)
+    feed = batches()
+    losses = []
+
+    def update():
+        for _ in range(ACCUM):
+            images, boxes, labels, mask = dd.to_device(next(feed), dev)
+            losses.append(step(images, boxes, mask, labels)["total"])
+    for _ in range(RPN_ACCUM_WARMUP):
+        update()
+    torch.cuda.synchronize()
+    for name in ROI_WRAPPERS:
+        getattr(roi, name).launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    window_ms = []
+    for _ in range(RPN_ACCUM_WINDOWS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(RPN_ACCUM_UPDATES):
+            update()
+        end.record()
+        torch.cuda.synchronize()
+        window_ms.append(start.elapsed_time(end) / RPN_ACCUM_UPDATES)
+    launches = {name: getattr(roi, name).launches for name in ROI_WRAPPERS}
+    updates = RPN_ACCUM_WINDOWS * RPN_ACCUM_UPDATES
+    per_update = {k: launches[k] / updates for k in ACCUM_KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    applied = int(opt.state[opt.param_groups[0]["params"][0]]["step"])
+    profiled_update = profiled(update, out_dir,
+                               "chip_smoke_rpn_accum_profile.txt")
+    loss_values = [float(v) for v in losses]
+    per_window = RPN_ACCUM_UPDATES * ACCUM
+    first = loss_values[RPN_ACCUM_WARMUP * ACCUM:][:per_window]
+    last = loss_values[(RPN_ACCUM_WARMUP + updates) * ACCUM - per_window:
+                       (RPN_ACCUM_WARMUP + updates) * ACCUM]
+    ms = float(np.median(window_ms))
+    res = {"card": card, "micro_steps_per_update": ACCUM,
+           "images": f"{TRAIN_BATCH} x {TRAIN_IMAGE}^2 uint8 a micro-step, "
+                     f"{RPN_ACCUM_REGIONS} GT regions each (learnable "
+                     f"synthetic VG, {len(loader.train_ix)} train images), "
+                     f"vocab {loader.getVocabSize()}",
+           "updates_timed": updates, "window_update_ms": window_ms,
+           "update_ms": ms, "images_per_s": ACCUM * TRAIN_BATCH / ms * 1e3,
+           "peak_mem_gb": peak_gb, "launches": launches,
+           "launches_per_applied_update": per_update,
+           "applied_updates": applied, "encoder_lr_from_update": boundary,
+           "profiled_update": profiled_update,
+           "device_idle_share_of_timed_update":
+               1 - profiled_update["device_busy_ms"] / ms,
+           "first_window_mean_loss": float(np.mean(first)),
+           "last_window_mean_loss": float(np.mean(last))}
+    print(f"RPN training, grad_accum_steps {ACCUM}: {json.dumps(res)}",
+          flush=True)
+    if not all(np.isfinite(loss_values)):
+        raise AssertionError(f"non-finite RPN loss at k={ACCUM}: "
+                             f"{loss_values}")
+    if any(v != ACCUM for v in per_update.values()) or \
+            applied != RPN_ACCUM_WARMUP + updates:
+        raise AssertionError(f"{updates} applied updates of {ACCUM} "
+                             f"micro-steps: {applied} optimizer steps, "
+                             f"ROI launches {launches}")
+    return res
+
+
+def alexcap_accum_train(dev, roi, out_dir: Path, card=""):
+    """Phase 23: the AlexCap LSTM captioner (`get_lstm_config()`:
+    ResNet-101 at 224² from 218×178 uint8, LSTM 768, batch 12 a
+    micro-step) at grad_accum_steps = ACCUM on
+    `make_learnable_face2text_arrays(120)` staged on the card, the
+    driver's rules: the finetune boundary at micro-step
+    ALEX_ACCUM_BOUNDARY goes up to the window's edge, so
+    the trunk stays bitwise unchanged through that applied update and
+    moves at every later one, and BatchNorm's running statistics move at
+    every micro-step after it. ALEX_ACCUM_UPDATES applied updates: one
+    warm-up and the rest event-timed in each phase (ms and images/s an
+    update); the mean loss of the last ALEX_ACCUM_LOSS_UPDATES updates must
+    be below the first's; no ROI kernel runs. Then one micro-step into a
+    window, a checkpoint saved and restored, and the window finished by
+    both: model, optimizer (its accumulated means included) and generator
+    bitwise equal."""
+    from functools import partial
+
+    from imagecaptioning_tpu_torch.data import device_store, synthetic
+    from imagecaptioning_tpu_torch.data.loader import AlexDataLoader
+    from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
+    from imagecaptioning_tpu_torch.models.captioners import build_model
+    from imagecaptioning_tpu_torch.train import optim
+    from imagecaptioning_tpu_torch.train.driver import encoder_frozen
+    from imagecaptioning_tpu_torch.train.step import make_train_step
+    from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
+    from imagecaptioning_tpu_torch.utils.weights import seeded_init_
+
+    cfg = alexcap_cfg("lstm", grad_accum_steps=ACCUM)
+    bs = cfg.batch_size
+    arrays, info = synthetic.make_learnable_face2text_arrays(
+        num_images=ALEX_ACCUM_IMAGES, seed=SEED)
+    loader = AlexDataLoader(arrays=arrays, info=info, seed=cfg.seed)
+    store = device_store.stage_split(loader, 0, dev)
+    feed = device_store.index_stream(loader, 0, bs, iterate=cfg.iterate)
+    # the driver's rounding: up to a window's edge
+    boundary = optim.applied_updates(ALEX_ACCUM_BOUNDARY, ACCUM) * ACCUM
+    frozen_updates = boundary // ACCUM
+    preprocess = partial(resnet_v2_preprocess, dtype=torch.bfloat16)
+
+    def build():
+        m = build_model(cfg, loader.getVocabSize(), loader.getSeqLength(),
+                        device=dev)
+        return m, optim.make_optimizer(cfg, m, ALEX_ACCUM_UPDATES)
+    model, opt = build()
+    seeded_init_(model, SEED)
+    gen = torch.Generator(dev)
+    gen.manual_seed(SEED + 1)
+    step = make_train_step(model, opt, gen, preprocess,
+                           clip_norm=cfg.grad_clip_norm)
+    trunk_w = model.encoder[4][0].conv1.weight
+    stat = model.encoder[1].running_mean
+    w0, s0 = trunk_w.detach().clone(), stat.clone()
+    losses, trunk, stats = [], [], []
+
+    def micro_step():
+        model.freeze_encoder = encoder_frozen(cfg, len(losses), boundary)
+        idx = torch.from_numpy(next(feed)).to(dev)
+        losses.append(step(*device_store.gather_batch(store, idx))["loss"])
+        trunk.append(trunk_w.detach().clone())
+        stats.append(stat.clone())
+
+    def update():
+        for _ in range(ACCUM):
+            micro_step()
+    for r in ROI_WRAPPERS:
+        getattr(roi, r).launches = 0
+    timed = {}
+    for name, n in (("frozen", frozen_updates),
+                    ("finetune", ALEX_ACCUM_UPDATES - frozen_updates)):
+        update()                                        # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(update, iters=n - 1, warmup=0)
+        timed[name] = {"updates_timed": n - 1, "update_ms": ms,
+                       "images_per_s": ACCUM * bs / ms * 1e3,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    launches = {r: getattr(roi, r).launches for r in ROI_WRAPPERS}
+    # micro-step i ends applied update i // ACCUM + 1 when i % ACCUM is last
+    unchanged_through = [i for i in range(len(trunk))
+                         if torch.equal(trunk[i], w0)]
+    moved_each_update = all(
+        not torch.equal(trunk[i], trunk[i - ACCUM])
+        for i in range(boundary + 2 * ACCUM - 1, len(trunk), ACCUM))
+    still_mid_window = all(torch.equal(trunk[i], trunk[i - 1])
+                           for i in range(len(trunk)) if i % ACCUM != ACCUM - 1
+                           and i > 0)
+    stats_frozen = all(torch.equal(s, s0) for s in stats[:boundary])
+    stats_each_micro = all(not torch.equal(stats[i], stats[i - 1])
+                           for i in range(boundary, len(stats)))
+    loss_values = [float(v) for v in losses]
+    per_update = [float(np.mean(loss_values[i:i + ACCUM]))
+                  for i in range(0, len(loss_values), ACCUM)]
+    first = float(np.mean(per_update[:ALEX_ACCUM_LOSS_UPDATES]))
+    last = float(np.mean(per_update[-ALEX_ACCUM_LOSS_UPDATES:]))
+
+    # one micro-step into a window, then a checkpoint; both copies finish
+    # the window on the same batch
+    micro_step()
+    path = out_dir / "chip_smoke_alexcap_accum.ckpt"
+    state = {"model": model.state_dict(), "optimizer": opt.state_dict(),
+             "step": len(losses), "generator": gen.get_state(),
+             "iterators": dict(loader.iterators)}
+    mid_window = opt.mini_step
+    ckptlib.save_checkpoint(str(path), state)
+    ckpt_gb = path.stat().st_size / 1e9
+    restored = ckptlib.restore_checkpoint(str(path), torch.device("cpu"))
+    path.unlink()
+    model2, opt2 = build()
+    model2.load_state_dict(restored["model"])
+    opt2.load_state_dict(restored["optimizer"])
+    gen2 = torch.Generator(dev)
+    gen2.set_state(restored["generator"])
+    del restored
+    step2 = make_train_step(model2, opt2, gen2, preprocess,
+                            clip_norm=cfg.grad_clip_norm)
+    model.freeze_encoder = model2.freeze_encoder = False
+    batch = device_store.gather_batch(
+        store, torch.from_numpy(next(feed)).to(dev))
+    resumed_loss = step2(*batch)["loss"]
+    straight_loss = step(*batch)["loss"]
+    resume_bitwise = (mid_window == 1 and opt.mini_step == 0
+                      and torch.equal(resumed_loss, straight_loss)
+                      and same_state(model.state_dict(), model2.state_dict())
+                      and same_state(opt.state_dict(), opt2.state_dict())
+                      and torch.equal(gen.get_state(), gen2.get_state()))
+    del model2, opt2
+    res = {"card": card, "micro_steps_per_update": ACCUM, "batch": bs,
+           "model": describe(cfg, model),
+           "images": f"{bs} x {ALEX_HW[0]}x{ALEX_HW[1]} uint8 a micro-step, "
+                     f"{len(loader.split_ix[0])} learnable synthetic images "
+                     f"staged on the card, vocab {loader.getVocabSize()}",
+           "finetune_boundary_micro_step": [ALEX_ACCUM_BOUNDARY, boundary],
+           **timed, "roi_launches": launches,
+           "trunk_unchanged_after_micro_steps": len(unchanged_through),
+           "trunk_moved_at_each_update_after": moved_each_update,
+           "trunk_unchanged_mid_window": still_mid_window,
+           "bn_stats_unchanged_while_frozen": stats_frozen,
+           "bn_stats_moved_each_micro_step_after": stats_each_micro,
+           "loss_per_update": per_update,
+           "loss_first_updates_mean": first, "loss_last_updates_mean": last,
+           "checkpoint": {"gb": ckpt_gb, "saved_mid_window": mid_window,
+                          "resumed_bitwise": resume_bitwise},
+           "torch_utils_tensorboard_imports": importable(
+               "torch.utils.tensorboard"),
+           "h5py_imports": importable("h5py")}
+    print(f"AlexCap training, grad_accum_steps {ACCUM}: {json.dumps(res)}",
+          flush=True)
+    if not (unchanged_through == list(range(boundary + ACCUM - 1))
+            and moved_each_update and still_mid_window
+            and stats_frozen and stats_each_micro
+            and last < first and resume_bitwise
+            and not any(launches.values())
+            and all(np.isfinite(loss_values))):
+        raise AssertionError(f"AlexCap accumulation at k={ACCUM}: {res}")
+    return res
+
+
+def alexcap_accum_step_check(dev, card=""):
+    """Phase 23's check: one applied update from ACCUM micro-steps (phase
+    18's two images, one a micro-step) in fp64 on the card against the
+    CPU, phase 18's fp64 gate: the last micro-step's loss within
+    ALEX_LOSS_TOL relative, each averaged gradient before the update
+    within GRAD_REL_TOL relative in all but GRAD_SHARE_TOL of its
+    elements, BatchNorm's statistics within BN_TOL, every weight within
+    2·lr."""
+    lr = alexcap_cfg().learning_rate
+    want = alexcap_step_grads(torch.device("cpu"), dtype=torch.float64,
+                              accum=ACCUM)
+    got = alexcap_step_grads(dev, want[0], dtype=torch.float64, accum=ACCUM)
+    a = step_agreement(got, want, lr)
+    res = {"card": card, "dtype": "float64", "micro_steps": ACCUM,
+           "step": a,
+           "tolerance": f"loss {ALEX_LOSS_TOL} relative, each gradient "
+                        f"{GRAD_REL_TOL} relative in all but "
+                        f"{GRAD_SHARE_TOL} of each tensor's elements, "
+                        f"BatchNorm statistics {BN_TOL}, params within "
+                        f"2 lr = {2 * lr}"}
+    print(f"AlexCap accumulated update (card vs CPU, full width): "
+          f"{json.dumps(res)}", flush=True)
+    if not (a["loss_rel_err"] <= ALEX_LOSS_TOL and a["grads_all"]
+            and a["grad_share_over_tol_max"] <= GRAD_SHARE_TOL
+            and a["bn_running_stats_max_abs_err"] <= BN_TOL
+            and a["params_within_2lr"]):
+        raise AssertionError(f"AlexCap card accumulated update differs from "
+                             f"the CPU's: {res}")
+    return res
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out-dir", type=Path, default=Path("build/chip_smoke"),
@@ -2224,6 +2588,19 @@ def main() -> int:
         torch.cuda.empty_cache()
         lap(f"{19 + len(families) - 1} AlexCap {model_type}")
 
+    # phases 22-23: gradient accumulation, k = ACCUM
+    rpn_accum = rpn_accum_train(dev, roi, args.out_dir, card=smi)
+    rpn_accum["update_check"] = train_step_check(
+        dev, kind="rpn", card=smi, accum=ACCUM,
+        label=f"RPN accumulated update (fp32 card vs CPU, k={ACCUM}, full "
+              f"width)")
+    lap("22 RPN, grad_accum_steps 2")
+    alex_accum = alexcap_accum_train(dev, roi, args.out_dir, card=smi)
+    alex_accum["update_check"] = alexcap_accum_step_check(dev, card=smi)
+    alexcap_paths["alexcap_training_k2"] = alex_accum["roi_launches"]
+    torch.cuda.empty_cache()
+    lap("23 AlexCap LSTM, grad_accum_steps 2")
+
     # the serving path's kernel: the fused entry, bf16 map → bf16 codes
     main_case = slice_roi["roi_align_batch_chw bf16->bf16 CHW"]
     # launches over every path that runs the kernel: both GT heads'
@@ -2232,7 +2609,8 @@ def main() -> int:
     training = {"lstm": trained["launches"],
                 "transformer": t_trained["launches"]}
     rpn_paths = {"rpn_training": rpn_trained["launches"],
-                 "rpn_serving": rpn_served["launches"]}
+                 "rpn_serving": rpn_served["launches"],
+                 "rpn_training_k2": rpn_accum["launches"]}
     kernel = {
         "name": "roi_align_batch_chw", "route": "cuda",
         "source": "imagecaptioning_tpu_torch/csrc/roi_align.cu",
@@ -2261,6 +2639,8 @@ def main() -> int:
                              **rpn_paths,
                              **{k: v["roi_align_batch_chw"]
                                 for k, v in alexcap_paths.items()}},
+        "launches_per_applied_update_k2": rpn_accum[
+            "launches_per_applied_update"]["roi_align_batch_chw"],
         "rpn_shape": rpn_roi["roi_align_batch_chw"],
         "entries": {"serving_shape": slice_roi, "n1_canvas": canvas_roi},
     }
@@ -2276,17 +2656,22 @@ def main() -> int:
             "source": "imagecaptioning_tpu_torch/csrc/roi_align_bwd.cu",
             "replaces": "imagecaptioning_tpu/ops/roi_align.py:234-242",
             "launches": sum(v[name] for v in training.values())
-            + rpn_trained["launches"][name],
+            + rpn_trained["launches"][name] + rpn_accum["launches"][name],
             "launches_by_path": {"training": {k: v[name] for k, v in
                                               training.items()},
                                  "rpn_training": rpn_trained["launches"][
+                                     name],
+                                 "rpn_training_k2": rpn_accum["launches"][
                                      name],
                                  **{k: v[name]
                                     for k, v in alexcap_paths.items()}},
             "main_path": ("GT training with either head and RPN training, "
                           "once a step" if name == "roi_align_bwd_features"
                           else "RPN training, once a step (the sampled "
-                          "proposals' gradient; GT boxes are data)"),
+                          "proposals' gradient; GT boxes are data)")
+            + "; k per applied update at grad_accum_steps k",
+            "launches_per_applied_update_k2": rpn_accum[
+                "launches_per_applied_update"][name],
             "max_abs_err": max(rpn_roi[name]["max_abs_err"],
                                *(v["max_abs_err"] for k, v in
                                  {**train_bwd, **serve_bwd,
@@ -2325,6 +2710,7 @@ def main() -> int:
                            "reference_check": alex_ref,
                            "training": alex_trained,
                            "train_step_check": alex_step, **families},
+               "grad_accum_k2": {"rpn": rpn_accum, "alexcap": alex_accum},
                "seconds": time.perf_counter() - t_start,
                "phase_seconds": laps}
     print(f"summary: {json.dumps(summary)}")

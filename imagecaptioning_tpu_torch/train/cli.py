@@ -5,6 +5,8 @@ The reference drivers are bare scripts with hard-coded configs; as in the
 JAX package, every config field takes a `--set KEY=VALUE` override, and:
   --smoke        a tiny run (few iterations, synthetic data)
   --synthetic    the synthetic dataset even where the HDF5 exists
+  --synthetic-learnable  the learnable synthetic dataset (captions
+                 derived from the rendered images)
   --device       the torch device (default: the first CUDA card; `cpu`
                  runs on the CPU)
 """
@@ -28,8 +30,9 @@ def main(model_type: str, argv=None) -> dict:
     parser.add_argument("--synthetic", action="store_true",
                         help="use the synthetic dataset")
     parser.add_argument("--synthetic-learnable", action="store_true",
-                        help="synthetic captions that describe the images "
-                             "(not ported yet: raises)")
+                        help="synthetic data whose captions describe the "
+                             "rendered images (hair, skin, shirt, glasses, "
+                             "mouth, hat), so a run can show that it learns")
     parser.add_argument("--synthetic-images", type=int, default=None)
     parser.add_argument("--max-iter", type=int, default=None)
     parser.add_argument("--eval-every", type=int, default=None)

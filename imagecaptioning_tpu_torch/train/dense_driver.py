@@ -25,12 +25,24 @@ weights, the ROI kernel forward and its backward kernels, the heads in
 fp32), backpropagates and takes one optimizer update. Dropout masks and
 the RPN sampler's keys come from the trainer's generator. Runs on the
 first CUDA card unless the caller passes `device="cpu"`.
+
+The knobs, as in the JAX drivers: `grad_accum_steps` = k makes each step
+a micro-step and updates once per k (optax's `MultiSteps`: the mean of
+the k gradients through the group-wise clip and Adam), the encoder's lr
+boundary counted in applied updates, `-(-finetune_start // k)`;
+`encoder_init` merges converted VGG weights (`features` and `classifier`
+of the GT model, `conv_trunk` of the RPN model by default) into the
+seeded init; `tensorboard_dir` writes the losses and val scores as
+TensorBoard scalars; `debug_nans` runs the loop in autograd's anomaly
+mode; `synthetic_learnable` trains on region captions that describe the
+rendered boxes.
 """
 
 from __future__ import annotations
 
 import os
 import time
+from contextlib import closing
 from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
@@ -46,9 +58,13 @@ from imagecaptioning_tpu_torch.models.densecap import (DenseCapRPN,
                                                        GTDenseCaptioner)
 from imagecaptioning_tpu_torch.ops import boxes as boxlib
 from imagecaptioning_tpu_torch.ops.box_sampler import candidate_masks
+from imagecaptioning_tpu_torch.train.optim import (Accumulating,
+                                                   applied_updates)
 from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
+from imagecaptioning_tpu_torch.utils import pretrained, profiling
 from imagecaptioning_tpu_torch.utils.io import LossHistory, ResultsHistory
 from imagecaptioning_tpu_torch.utils.platform import resolve_device
+from imagecaptioning_tpu_torch.utils.tb import TBWriter
 from imagecaptioning_tpu_torch.utils.weights import seeded_init_
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -60,17 +76,21 @@ FROZEN_FEATURES = 10
 
 
 def make_vg_loader(cfg: DenseConfig, synthetic_fallback: bool = True,
-                   synthetic_images: int = 8,
-                   image_size: int = 64) -> VGDataLoader:
-    """The VG HDF5 named by the config, else seeded synthetic arrays
-    (captions of at most 8 words)."""
+                   synthetic_images: int = 8, image_size: int = 64,
+                   synthetic_seq_length: int = 8,
+                   synthetic_learnable: bool = False) -> VGDataLoader:
+    """The VG HDF5 named by the config, else seeded synthetic arrays of
+    `synthetic_seq_length` tokens: random-word captions, or with
+    `synthetic_learnable` region captions that describe the rendered box
+    (colour, size, half)."""
     if os.path.exists(cfg.data_h5) and os.path.exists(cfg.data_json):
         return VGDataLoader(data_h5=cfg.data_h5, data_json=cfg.data_json)
     if not synthetic_fallback:
         raise FileNotFoundError(cfg.data_h5)
-    arrays, info = synthetic.make_vg_arrays(
-        num_images=synthetic_images, image_size=image_size, seq_length=8,
-        seed=cfg.seed)
+    make = (synthetic.make_learnable_vg_arrays if synthetic_learnable
+            else synthetic.make_vg_arrays)
+    arrays, info = make(num_images=synthetic_images, image_size=image_size,
+                        seq_length=synthetic_seq_length, seed=cfg.seed)
     return VGDataLoader(arrays=arrays, info=info)
 
 
@@ -81,11 +101,12 @@ def teacher_prob_schedule(it) -> float:
     return float(k / (k + np.exp(np.float32(it) / k)))
 
 
-class DenseAdam(torch.optim.Adam):
+class DenseAdam(Accumulating, torch.optim.Adam):
     """torch Adam — whose `weight_decay` is the additive L2 on the gradient
     before the moments, as optax's `add_decayed_weights` before
-    `scale_by_adam` (`traingt.py:62`), not AdamW — with two per-group
-    keys of the dense drivers, kept in the optimizer's state dict:
+    `scale_by_adam` (`traingt.py:62`), not AdamW — accumulating as
+    optax's `MultiSteps` (`Accumulating`), with two per-group keys of the
+    dense drivers, kept in the optimizer's state dict:
 
     - `start_step`: the group's lr is `base_lr` from that applied update
       on and 0 before it, while its moments accumulate from the first
@@ -126,12 +147,8 @@ def make_dense_optimizer(cfg: DenseConfig, model: torch.nn.Module,
       (in applied updates) and `learning_rate` from it on; its moments
       accumulate from the first update.
     - head: everything else, at `learning_rate`.
-    `grad_clip_norm` > 0 clips each group on its own. Gradient
-    accumulation (`grad_accum_steps` > 1) is not ported and raises."""
-    if cfg.grad_accum_steps > 1:
-        raise NotImplementedError(
-            "grad_accum_steps > 1 (optax.MultiSteps) is not ported yet "
-            "(ROADMAP.md, Queue 1)")
+    `grad_clip_norm` > 0 clips each group on its own. `grad_accum_steps`
+    micro-steps make one update, over the mean of their gradients."""
     encoder, head = [], []
     for name, p in model.named_parameters():
         top, idx = name.split(".")[:2]
@@ -154,7 +171,8 @@ def make_dense_optimizer(cfg: DenseConfig, model: torch.nn.Module,
                             start_step=finetune_start_step))
     return DenseAdam(groups, lr=cfg.learning_rate,
                      betas=(cfg.optim_beta1, cfg.optim_beta2),
-                     eps=cfg.optim_epsilon, weight_decay=cfg.weight_decay)
+                     eps=cfg.optim_epsilon, weight_decay=cfg.weight_decay,
+                     every=cfg.grad_accum_steps, accumulated=encoder + head)
 
 
 def build_gt_model(cfg: DenseConfig, vocab_size: int, seq_length: int,
@@ -204,10 +222,11 @@ def build_rpn_model(cfg: DenseConfig, vocab_size: int, seq_length: int,
 
 def make_gt_train_step(model: GTDenseCaptioner, optimizer: DenseAdam,
                        use_curriculum: bool, generator: torch.Generator):
-    """One update: (uint8 images (N, S, S, 3), boxes (N, R, 4), labels
+    """One step: (uint8 images (N, S, S, 3), boxes (N, R, 4), labels
     (N, R, T) long, box mask (N, R), teacher_prob) on the model's device
-    → the captioning loss (a 0-d tensor, not synchronised). Dropout and
-    scheduled sampling draw from `generator`."""
+    → the captioning loss (a 0-d tensor, not synchronised); an update at
+    the end of each accumulation window. Dropout and scheduled sampling
+    draw from `generator`."""
     def train_step(images_u8, boxes, labels, mask, teacher_prob):
         x = normalize_images(images_u8, dtype=model.compute_dtype)
         out = model(x, boxes, labels, train=True,
@@ -216,16 +235,18 @@ def make_gt_train_step(model: GTDenseCaptioner, optimizer: DenseAdam,
         loss = model.loss(out, labels, mask)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        optimizer.step()
+        if optimizer.accumulate():
+            optimizer.step()
         return loss.detach()
     return train_step
 
 
 def make_rpn_train_step(model: DenseCapRPN, optimizer: DenseAdam,
                         generator: torch.Generator):
-    """One update: (uint8 images (N, S, S, 3), GT boxes (N, M, 4), box
+    """One step: (uint8 images (N, S, S, 3), GT boxes (N, M, 4), box
     mask (N, M), labels (N, M, T) long) on the model's device → the loss
-    dict (0-d tensors, not synchronised), the gradient taken of `total`.
+    dict (0-d tensors, not synchronised), the gradient taken of `total`;
+    an update at the end of each accumulation window.
     The dropout masks draw from `generator`, and so do the sampler's keys
     unless they are given (`keys`, as `DenseCapRPN.forward` takes
     them)."""
@@ -235,7 +256,8 @@ def make_rpn_train_step(model: DenseCapRPN, optimizer: DenseAdam,
                        generator=generator)
         optimizer.zero_grad(set_to_none=True)
         losses["total"].backward()
-        optimizer.step()
+        if optimizer.accumulate():
+            optimizer.step()
         return {k: v.detach() for k, v in losses.items()}
     return train_step
 
@@ -260,11 +282,16 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device):
             torch.from_numpy(batch["box_mask"]).to(device))
 
 
-def _refuse_unported(cfg: DenseConfig) -> None:
-    for knob in ("encoder_init", "tensorboard_dir"):
-        if getattr(cfg, knob):
-            raise NotImplementedError(f"{knob} is not ported yet "
-                                      f"(ROADMAP.md, Queue 1)")
+def _seeded_model(model: torch.nn.Module, cfg: DenseConfig, trunk: str,
+                  verbose: bool) -> torch.nn.Module:
+    """`model` from `cfg.seed`, with `encoder_init`'s converted weights
+    merged in (`trunk` the default module)."""
+    seeded_init_(model, cfg.seed)
+    if cfg.encoder_init:
+        pretrained.apply_encoder_init(model, cfg.encoder_init, trunk)
+        if verbose:
+            print(f"encoder initialized from {cfg.encoder_init}")
+    return model
 
 
 def _train_loop(cfg: DenseConfig, *, model, optimizer, generator, loader,
@@ -278,7 +305,9 @@ def _train_loop(cfg: DenseConfig, *, model, optimizer, generator, loader,
     `max_iter` steps of `step(batch, it)` → losses, the loss history's
     `loss_key` every `log_every` steps, `evaluate()` every `eval_every`
     steps and at the end, keeping the checkpoint of the best val mAP,
-    and a preemption checkpoint `<save_path>.preempt` on SIGTERM/SIGINT.
+    and a preemption checkpoint `<save_path>.preempt` on SIGTERM/SIGINT;
+    the losses, the step's ms and the val scores as TensorBoard scalars
+    with `tensorboard_dir`, the loop in anomaly mode with `debug_nans`.
     Returns the summary's common part."""
     loss_hist = LossHistory(loss_file, resume=cfg.from_checkpoint)
     res_hist = ResultsHistory(result_file, resume=cfg.from_checkpoint)
@@ -302,7 +331,8 @@ def _train_loop(cfg: DenseConfig, *, model, optimizer, generator, loader,
         cursor = (it % steps_per_epoch) * cfg.batch_size
         return ckptlib.train_state(model, optimizer, it, generator, cursor)
     with ckptlib.SignalCheckpointer() as sig, \
-            torch.autograd.set_detect_anomaly(cfg.debug_nans):
+            closing(TBWriter(cfg.tensorboard_dir)) as tb, \
+            profiling.enable_nan_debugging(cfg.debug_nans):
         for batch in _endless_batches(loader, cfg, start_images):
             if it >= max_iter:
                 break
@@ -318,6 +348,8 @@ def _train_loop(cfg: DenseConfig, *, model, optimizer, generator, loader,
             if it % log_every == 0:
                 loss_hist.append(it, last[loss_key], step_ms)
                 loss_hist.flush()
+                tb.scalars(last, it, prefix="train/")
+                tb.scalar("train/step_ms", step_ms, it)
                 if verbose:
                     msg = ", ".join(f"{k} {v:.5f}" for k, v in last.items())
                     print(f"iter {it}/{max_iter} {msg} ({step_ms:.1f} ms)")
@@ -326,12 +358,15 @@ def _train_loop(cfg: DenseConfig, *, model, optimizer, generator, loader,
                 is_best = res_hist.append(it, results,
                                           score_key=("ap_results", "map"))
                 res_hist.flush()
+                tb.scalars(results.get("ap_results", {}), it, prefix="val/")
+                tb.flush()
                 if verbose:
                     print(f"eval@{it}: "
                           f"map={results['ap_results']['map']:.4f} "
                           f"best={is_best}")
                 if is_best:
                     ckptlib.save_checkpoint(save_path, state())
+    loss_hist.flush()         # the file exists for a run shorter than a log
     return {"iters": it, "max_iter": max_iter, "final_losses": last,
             "best_val_score": res_hist.best_score,
             "best_iter": res_hist.best_iter, "loss_file": loss_file,
@@ -343,19 +378,25 @@ def train_gt(cfg: DenseConfig, *, device=None,
              max_iter_override: Optional[int] = None,
              eval_every_override: Optional[int] = None,
              synthetic_fallback: bool = True, synthetic_images: int = 8,
-             synthetic_image_size: int = 64, verbose: bool = True) -> Dict:
+             synthetic_image_size: int = 64, synthetic_seq_length: int = 8,
+             synthetic_learnable: bool = False,
+             verbose: bool = True) -> Dict:
     """The traingt.py loop. Returns a summary with the histories' paths,
     the model, optimizer and loader."""
     dev = resolve_device(device)
-    _refuse_unported(cfg)
     loss_file, result_file, save_path = name_gt_model(cfg)
     loader = make_vg_loader(cfg, synthetic_fallback, synthetic_images,
-                            synthetic_image_size)
-    model = seeded_init_(build_gt_model(cfg, loader.getVocabSize(),
-                                        loader.getSeqLength(), dev), cfg.seed)
+                            synthetic_image_size, synthetic_seq_length,
+                            synthetic_learnable)
+    model = _seeded_model(build_gt_model(cfg, loader.getVocabSize(),
+                                         loader.getSeqLength(), dev),
+                          cfg, "features", verbose)
     # traingt.py:87-88 counts the train split's IMAGES and compares that
-    # with the iteration count (ROADMAP.md, Queue 3): kept as it is
-    optimizer = make_dense_optimizer(cfg, model, len(loader.train_ix))
+    # with the iteration count (ROADMAP.md, Queue 3): kept as it is, in
+    # applied updates under accumulation
+    optimizer = make_dense_optimizer(
+        cfg, model, applied_updates(len(loader.train_ix),
+                                    cfg.grad_accum_steps))
     generator = torch.Generator(dev)
     generator.manual_seed(cfg.seed + 1)
     train_step = make_gt_train_step(model, optimizer,
@@ -467,18 +508,22 @@ def train_rpn(cfg: DenseConfig, *, device=None,
               max_iter_override: Optional[int] = None,
               eval_every_override: Optional[int] = None,
               synthetic_fallback: bool = True, synthetic_images: int = 8,
-              synthetic_image_size: int = 64, verbose: bool = True) -> Dict:
+              synthetic_image_size: int = 64, synthetic_seq_length: int = 8,
+              synthetic_learnable: bool = False,
+              verbose: bool = True) -> Dict:
     """The repaired DenseCap/train.py loop over the RPN model. Returns a
     summary with the last step's losses, the histories' paths, the model,
     optimizer and loader."""
     dev = resolve_device(device)
-    _refuse_unported(cfg)
     loader = make_vg_loader(cfg, synthetic_fallback, synthetic_images,
-                            synthetic_image_size)
-    model = seeded_init_(build_rpn_model(cfg, loader.getVocabSize(),
-                                         loader.getSeqLength(), dev),
-                         cfg.seed)
-    optimizer = make_dense_optimizer(cfg, model, len(loader.train_ix))
+                            synthetic_image_size, synthetic_seq_length,
+                            synthetic_learnable)
+    model = _seeded_model(build_rpn_model(cfg, loader.getVocabSize(),
+                                          loader.getSeqLength(), dev),
+                          cfg, "conv_trunk", verbose)
+    optimizer = make_dense_optimizer(
+        cfg, model, applied_updates(len(loader.train_ix),
+                                    cfg.grad_accum_steps))
     generator = torch.Generator(dev)
     generator.manual_seed(cfg.seed + 1)
     train_step = make_rpn_train_step(model, optimizer, generator)

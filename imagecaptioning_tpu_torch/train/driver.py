@@ -19,6 +19,15 @@ clip, though its optimizer group is a hard zero (`train/optim.py`).
 `encoder_init` merges converted encoder weights into the seeded init
 (`utils/pretrained.py`).
 
+The knobs: `grad_accum_steps` = k averages k micro-steps into one update
+(optax's `MultiSteps`, `train/optim.py`): the loop counts micro-steps,
+the finetune boundary is rounded up to a window's edge and the
+optimizer's schedules count applied updates, `-(-max_iter // k)` in all;
+`tensorboard_dir` writes the loss and the val scores as TensorBoard
+scalars (`utils/tb.py`); `debug_nans` runs the loop in autograd's anomaly
+mode (`utils/profiling.py`); `synthetic_learnable` trains on captions
+that describe the images (`data/synthetic.py`).
+
 The input path is the device-resident store (`data.device_store`: the
 uint8 train split on the card, index batches per step) or the streaming
 one (host gather in a prefetch thread, then a copy per batch), chosen by
@@ -30,6 +39,7 @@ from __future__ import annotations
 
 import os
 import time
+from contextlib import closing
 from functools import partial
 from typing import Dict, Optional
 
@@ -48,25 +58,27 @@ from imagecaptioning_tpu_torch.train import optim
 from imagecaptioning_tpu_torch.train.step import (make_eval_step,
                                                   make_train_step)
 from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
-from imagecaptioning_tpu_torch.utils import pretrained
+from imagecaptioning_tpu_torch.utils import pretrained, profiling
 from imagecaptioning_tpu_torch.utils.io import LossHistory, ResultsHistory
 from imagecaptioning_tpu_torch.utils.platform import resolve_device
+from imagecaptioning_tpu_torch.utils.tb import TBWriter
 from imagecaptioning_tpu_torch.utils.weights import seeded_init_
-
-_WAITING = "is not ported yet (ROADMAP.md, Queue 1, item 2)"
 
 
 def make_loader(cfg: CaptionConfig, synthetic_fallback: bool = True,
-                synthetic_images: int = 64) -> AlexDataLoader:
+                synthetic_images: int = 64,
+                synthetic_learnable: bool = False) -> AlexDataLoader:
     """The Face2Text HDF5 named by the config, else seeded synthetic
-    arrays."""
+    arrays: random-word captions, or with `synthetic_learnable` captions
+    that describe the rendered image."""
     if os.path.exists(cfg.data_h5) and os.path.exists(cfg.data_json):
         return AlexDataLoader(data_h5=cfg.data_h5, data_json=cfg.data_json,
                               seed=cfg.seed)
     if not synthetic_fallback:
         raise FileNotFoundError(cfg.data_h5)
-    arrays, info = synthetic.make_face2text_arrays(num_images=synthetic_images,
-                                                   seed=cfg.seed)
+    make = (synthetic.make_learnable_face2text_arrays if synthetic_learnable
+            else synthetic.make_face2text_arrays)
+    arrays, info = make(num_images=synthetic_images, seed=cfg.seed)
     return AlexDataLoader(arrays=arrays, info=info, seed=cfg.seed)
 
 
@@ -103,17 +115,6 @@ def _resident_mode(cfg: CaptionConfig, loader,
     return device_store.fits(nbytes, device_store.device_memory_budget(device))
 
 
-def _refuse_unported(cfg: CaptionConfig, synthetic_learnable: bool) -> None:
-    if cfg.grad_accum_steps > 1:
-        raise NotImplementedError(f"grad_accum_steps > 1 {_WAITING}")
-    for knob in ("tensorboard_dir", "debug_nans"):
-        if getattr(cfg, knob):
-            raise NotImplementedError(f"{knob} {_WAITING}")
-    if synthetic_learnable:
-        raise NotImplementedError(f"the learnable synthetic face2text data "
-                                  f"(--synthetic-learnable) {_WAITING}")
-
-
 def encoder_frozen(cfg: CaptionConfig, it: int, frozen_until: int) -> bool:
     """Whether iteration `it` stops the encoder's gradient: the frozen
     phase, and every iteration of a `trained_encoder` ViT."""
@@ -128,15 +129,19 @@ def train(cfg: CaptionConfig, *, device=None,
     """Train per config → a summary with the histories' paths, the best
     val score, the final test evals, the model, optimizer and loader."""
     dev = resolve_device(device)
-    _refuse_unported(cfg, synthetic_learnable)
     loss_file, result_file, save_path = name_model(cfg)
-    loader = make_loader(cfg, synthetic_fallback, synthetic_images)
+    loader = make_loader(cfg, synthetic_fallback, synthetic_images,
+                         synthetic_learnable)
     bs = cfg.batch_size
     iters_per_epoch = max(cfg.save_checkpoint_every // bs, 1)
     max_iter = max_iter_override or iters_per_epoch * cfg.num_epochs
     eval_every = eval_every_override or iters_per_epoch
     pad = cfg.log_every or max(cfg.save_checkpoint_every // (bs * bs), 1)
-    finetune_start = cfg.finetuning_after_nepoch * iters_per_epoch
+    # the loop counts micro-steps, the optimizer applied updates: the
+    # boundary goes up to a window's edge, so that no window mixes phases
+    accum = max(cfg.grad_accum_steps, 1)
+    finetune_start = optim.applied_updates(
+        cfg.finetuning_after_nepoch * iters_per_epoch, accum) * accum
     # the frozen-CNN phase (train_LSTM.py:48-54): no gradient reaches the
     # trunk before the finetune boundary
     frozen_until = finetune_start if cfg.finetune_cnn else 0
@@ -150,7 +155,8 @@ def train(cfg: CaptionConfig, *, device=None,
             encoder_name(cfg.model_type))
         if verbose:
             print(f"encoder initialized from {cfg.encoder_init}")
-    optimizer = optim.make_optimizer(cfg, model, max_iter)
+    optimizer = optim.make_optimizer(cfg, model,
+                                     optim.applied_updates(max_iter, accum))
     generator = torch.Generator(dev)
     generator.manual_seed(cfg.seed + 1)
     preprocess = partial(resnet_v2_preprocess,
@@ -213,7 +219,9 @@ def train(cfg: CaptionConfig, *, device=None,
 
     it = start_iter
     last_loss = float("nan")
-    with ckptlib.SignalCheckpointer() as sig:
+    with ckptlib.SignalCheckpointer() as sig, \
+            closing(TBWriter(cfg.tensorboard_dir)) as tb, \
+            profiling.enable_nan_debugging(cfg.debug_nans):
         for item in feed:
             if it >= max_iter:
                 break
@@ -231,6 +239,8 @@ def train(cfg: CaptionConfig, *, device=None,
             if it % pad == 0:
                 loss_hist.append(it, last_loss, step_ms)
                 loss_hist.flush()
+                tb.scalar("train/loss", last_loss, it)
+                tb.scalar("train/step_ms", step_ms, it)
                 if verbose:
                     print(f"iter {it}/{max_iter} loss {last_loss:.4f} "
                           f"({step_ms:.1f} ms)")
@@ -238,6 +248,8 @@ def train(cfg: CaptionConfig, *, device=None,
                 results = evaluate(1, eval_loss_fn=eval_loss)
                 is_best = res_hist.append(it, results)
                 res_hist.flush()
+                tb.scalars(results.get("ap_results", {}), it, prefix="val/")
+                tb.flush()
                 if verbose:
                     print(f"eval@{it}: {results['ap_results']} "
                           f"best={is_best}")

@@ -1,5 +1,6 @@
 """The AlexCap optimizer — port of `imagecaptioning_tpu/train/optim.py`
-(`warmup_cosine`, `gate_until`, `make_optimizer`) for the four families.
+(`warmup_cosine`, `gate_until`, `make_optimizer`, with `optax.MultiSteps`
+as `Accumulating`) for the four families.
 
 The JAX chain is: global-norm clip over every gradient → two groups, the
 encoder (`encoder`: the CNN trunk `features`, or the ViT's `encoder_vit`)
@@ -31,12 +32,18 @@ on global time (`train_LSTM.py:57-75`). Each group is:
   enters the clip; and the ViT's encoder with `trained_encoder`
   (`requires_grad=False` for the whole run, `VitbModel.py:162-166`).
   Without it, the ViT's encoder follows the LSTM's gate.
+- `grad_accum_steps` = k > 1 is optax's `MultiSteps` around the whole
+  chain (`Accumulating`): k micro-gradients averaged by optax's running
+  mean, the mean through the clip, the gate and Adam once per window,
+  the weights and moments untouched in between. Schedules and the gate
+  count applied updates: the driver passes `total_steps` in them and
+  puts the finetune boundary on a window's edge.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -68,6 +75,73 @@ def warmup_cosine(lr: float, min_lr: float, warmup_steps: int,
     return schedule
 
 
+def applied_updates(micro_steps: int, every: int) -> int:
+    """The updates that `micro_steps` make at `every` micro-steps an
+    update, a partial window counted: a horizon or boundary in micro-steps
+    (the drivers' loop count) in the units of the schedules and gates."""
+    return -(-micro_steps // max(every, 1))
+
+
+class Accumulating:
+    """optax's `MultiSteps` (mean of k micro-gradients) for a torch
+    optimizer; a mixin before its class, with `every` = k and
+    `accumulated`, the (name, parameter) pairs whose gradients it averages
+    — every trained one, the clip's too where they are in no group.
+
+    After each micro-step's backward, `accumulate()` folds each `.grad`
+    into its running mean as optax does, acc + (g − acc) / (n + 1) (a
+    missing gradient is optax's zero where the window has a mean, else it
+    stays missing); at the k-th micro-step it puts the means in `.grad`
+    and returns True, for the caller to clip and `step()`; before, it
+    clears `.grad` and returns False: nothing else changes. The
+    micro-step count and the means are in `state_dict()`, so a run saved
+    mid-window resumes bitwise."""
+
+    def __init__(self, *args, every: int = 1, accumulated=(), **kw):
+        super().__init__(*args, **kw)
+        self.every = max(int(every), 1)
+        self.accumulated = dict(accumulated)
+        self.mini_step = 0
+        self.means: Dict[str, torch.Tensor] = {}
+
+    @torch.no_grad()
+    def accumulate(self) -> bool:
+        if self.every == 1:
+            return True
+        n = self.mini_step
+        for name, p in self.accumulated.items():
+            acc = self.means.get(name)
+            if p.grad is None:
+                if acc is not None:             # acc + (0 - acc) / (n + 1)
+                    acc.sub_(acc / (n + 1))
+                continue
+            if acc is None:
+                acc = self.means[name] = torch.zeros_like(p.grad)
+            acc.add_((p.grad - acc) / (n + 1))
+            p.grad = None
+        self.mini_step = n + 1
+        if self.mini_step < self.every:
+            return False
+        for name, acc in self.means.items():
+            self.accumulated[name].grad = acc
+        self.mini_step, self.means = 0, {}
+        return True
+
+    def state_dict(self):
+        sd = super().state_dict()
+        sd["accumulation"] = {"mini_step": self.mini_step,
+                              "means": dict(self.means)}
+        return sd
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        acc = state_dict.pop("accumulation", {"mini_step": 0, "means": {}})
+        super().load_state_dict(state_dict)
+        self.mini_step = int(acc["mini_step"])
+        self.means = {k: v.to(self.accumulated[k].device, copy=True)
+                      for k, v in acc["means"].items()}
+
+
 class _Scheduled:
     """A torch optimizer whose groups' lr follows `schedule` over the
     updates taken, the count kept in each group (`updates`) so that a
@@ -89,11 +163,11 @@ class _Scheduled:
         return super().step(closure)
 
 
-class AlexAdam(_Scheduled, torch.optim.Adam):
+class AlexAdam(Accumulating, _Scheduled, torch.optim.Adam):
     """torch Adam (additive L2 before the moments), scheduled."""
 
 
-class AlexAdamW(_Scheduled, torch.optim.AdamW):
+class AlexAdamW(Accumulating, _Scheduled, torch.optim.AdamW):
     """torch AdamW (decoupled decay), scheduled."""
 
 
@@ -110,12 +184,10 @@ def make_optimizer(cfg, model: torch.nn.Module, total_steps: int):
     """The update chain of a CaptionConfig over `model`: an `AlexAdam`
     (LSTM families) or `AlexAdamW` (Transformer, ViT) with groups `head`
     and, where `trains_encoder`, `encoder` (`features.*` or
-    `encoder_vit.*`), each with its parameter names. The gate's boundary
-    is the driver's: it freezes the encoder's gradient until then."""
-    if cfg.grad_accum_steps > 1:
-        raise NotImplementedError(
-            "grad_accum_steps > 1 (optax.MultiSteps) is not ported yet "
-            "(ROADMAP.md, Queue 1, item 2)")
+    `encoder_vit.*`), each with its parameter names, accumulating
+    `grad_accum_steps` micro-steps over every trained parameter of
+    `model`. `total_steps` counts applied updates. The gate's boundary is
+    the driver's: it freezes the encoder's gradient until then."""
     if cfg.use_scheduler:
         warmup = max(2 * total_steps // max(cfg.num_epochs, 1), 1)
         schedule = warmup_cosine(cfg.learning_rate, cfg.min_lr, warmup,
@@ -136,7 +208,9 @@ def make_optimizer(cfg, model: torch.nn.Module, total_steps: int):
     adam = (AlexAdamW if cfg.model_type in ("transformer", "vitb")
             else AlexAdam)
     return adam(groups, schedule, betas=(cfg.beta1, cfg.beta2), eps=cfg.eps,
-                weight_decay=cfg.weight_decay)
+                weight_decay=cfg.weight_decay, every=cfg.grad_accum_steps,
+                accumulated=[(n, p) for n, p in model.named_parameters()
+                             if p.requires_grad])
 
 
 def global_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:

@@ -8,6 +8,11 @@ updated while the encoder trains) → smoothed cross-entropy → backward →
 global-norm clip → Adam. It returns the loss and the global norm of the
 gradients before the clip, as 0-d tensors that are not synchronised.
 Dropout masks draw from the trainer's generator.
+
+Under gradient accumulation (the optimizer's `every` = k > 1, optax's
+`MultiSteps`) a call is a micro-step: backward on every call, the clip
+and the update once a window, over the mean of its k gradients; each
+call returns its own loss and gradient norm, as JAX's step does.
 """
 
 from __future__ import annotations
@@ -39,9 +44,11 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
         model.zero_grad(set_to_none=True)
         loss.backward()
         gnorm = optim.global_norm(params)
-        if clip_norm is not None:
-            optim.clip_by_global_norm_(params, clip_norm, gnorm)
-        optimizer.step()
+        if optimizer.accumulate():
+            if clip_norm is not None:      # the norm of the window's mean
+                optim.clip_by_global_norm_(
+                    params, clip_norm, gnorm if optimizer.every == 1 else None)
+            optimizer.step()
         return {"loss": loss.detach(), "grad_norm": gnorm}
     return train_step
 

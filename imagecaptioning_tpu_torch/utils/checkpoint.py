@@ -5,10 +5,12 @@ orbax.
 A checkpoint is one file holding the complete training state as a dict
 (`train_state`: the model and optimizer state dicts, the step, the
 trainer's generator state and the loader cursor, the same for the GT and
-the RPN drivers), so resume is exact. Saving
-writes `<path>.tmp-save` first and swaps it in with renames, keeping the
-previous file as `<path>.old` until the new one is in place: a crash at
-any point leaves a restorable checkpoint. `resume_path` keeps the JAX
+the RPN drivers; under gradient accumulation the optimizer's state
+dict carries the window's micro-step count and running means, as
+optax's `MultiSteps` state does), so resume is exact, mid-window too.
+Saving writes `<path>.tmp-save` first and swaps it in with renames,
+keeping the previous file as `<path>.old` until the new one is in place:
+a crash at any point leaves a restorable checkpoint. `resume_path` keeps the JAX
 package's order of preference.
 """
 

@@ -1,9 +1,10 @@
-"""Pretrained-encoder initialization of the AlexCap driver — port of
+"""Pretrained-encoder initialization of the training drivers — port of
 `imagecaptioning_tpu/utils/pretrained.py`.
 
-The reference builds every AlexCap model from pretrained weights
-(ResNet-101 or VGGFace, `AlexCap/LSTMModel.py:18-27`; ViT-B/16,
-`VitbModel.py:156-166`). The config field `encoder_init` names converted
+The reference builds every model from pretrained weights (ResNet-101 or
+VGGFace, `AlexCap/LSTMModel.py:18-27`; ViT-B/16, `VitbModel.py:156-166`;
+VGG16 for the dense models, `DenseCap/densecap/net_utils.py:8-13`). The
+config field `encoder_init` names converted
 `.npz` files in the JAX package's layout (`convert_checkpoint.py
 import`: the module's flax variables, `/`-joined paths such as
 `params/conv1/kernel` and `batch_stats/bn1/mean`), each merged into one
@@ -13,9 +14,14 @@ leaf of the file is read, every tensor of the module is written, at its
 shape, and BatchNorm statistics are in the file iff the module has them;
 anything else raises, so a wrong or partial file never trains silently.
 
-Spec syntax (the `encoder_init` value): `"r101.npz"` for the family's
-default module (`captioners.encoder_name`: `features`; `encoder_vit` for
-ViT-B), or `"features=a.npz,encoder_vit=b.npz"`.
+Spec syntax (the `encoder_init` value): `"r101.npz"` for the model's
+default module — `features` for the CNN captioners and the GT model,
+`encoder_vit` for ViT-B (`captioners.encoder_name`), `conv_trunk` for the
+RPN model — or explicit modules, `"features=a.npz,classifier=b.npz"`. A
+module is a ResNet or VGG trunk, a ViT encoder, or a VGG classifier head
+(`classifier` of the GT model, `recog_base` of the RPN model; JAX
+flattens its pooled input in HWC order, the port in CHW, and the
+converter reorders fc6's rows).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 from torch import nn
 
 from imagecaptioning_tpu_torch.models.backbones.resnet import ResNetFeatures
+from imagecaptioning_tpu_torch.models.backbones.vgg import VGGClassifierHead
 from imagecaptioning_tpu_torch.models.backbones.vit import ViTEncoder
 from imagecaptioning_tpu_torch.utils import weights
 
@@ -104,12 +111,16 @@ def _leaves(tree: Mapping, path: str) -> List[str]:
     return out
 
 
-def _convert(module: nn.Module, name: str, params: Mapping,
+def _convert(model: nn.Module, module: nn.Module, name: str, params: Mapping,
              stats: Mapping) -> Dict[str, torch.Tensor]:
     if isinstance(module, ViTEncoder):
         return weights.vit_state_dict(params, prefix=name)
     if isinstance(module, ResNetFeatures):
         return weights.resnet_state_dict(params, stats, prefix=name)
+    if isinstance(module, VGGClassifierHead):
+        oh, ow = model.roi_size               # the pooled code's side
+        return weights.vgg_classifier_state_dict(
+            params, channels=module[0].in_features // (oh * ow), prefix=name)
     return weights.vgg_features_state_dict(params, prefix=name)
 
 
@@ -131,7 +142,7 @@ def module_state_dict(model: nn.Module, module: str,
             f"stats={has_stats}")
     seen: Set[str] = set()
     try:
-        sd = _convert(target, module,
+        sd = _convert(model, target, module,
                       _Reads(variables.get("params", {}), "params", seen),
                       _Reads(variables.get("batch_stats", {}), "batch_stats",
                              seen))

@@ -25,8 +25,9 @@ fp32 on the CPU.
   checkpoint, a preemption checkpoint and a resume that continues the
   batch cursor and ends on the uninterrupted run's loss; the
   `train_LSTM --smoke` and `infer --model-type lstm` CLIs on the CPU;
-  both raise without a card unless asked for the CPU; the knobs that wait
-  for ROADMAP Queue 1, item 2 raise (not `encoder_init`, ported since).
+  both raise without a card unless asked for the CPU; the driver's knobs
+  (`grad_accum_steps`, `tensorboard_dir`, `debug_nans`, the learnable
+  synthetic data) run together.
 """
 
 import dataclasses
@@ -202,8 +203,21 @@ def test_optimizer_without_finetune_leaves_the_trunk_alone():
                                           finetune_cnn=True), model, 4)
     assert isinstance(opt, optim.AlexAdamW)
     assert [g["group"] for g in opt.param_groups] == ["head"]
-    with pytest.raises(NotImplementedError, match="item 2"):
-        optim.make_optimizer(pc.replace(grad_accum_steps=2), model, 4)
+    # accumulating, the trunk outside every group still has its gradient
+    # averaged (for the clip) and stays put
+    opt = optim.make_optimizer(pc.replace(grad_accum_steps=2), model, 4)
+    assert opt.every == 2 and [g["group"] for g in opt.param_groups] == [
+        "head"]
+    assert "features.w" in opt.accumulated
+    for k, g in enumerate(_toy_case(2, seed=1)[1]):
+        for top, leaves in g.items():
+            for name, v in leaves.items():
+                getattr(model, top)[name].grad = torch.from_numpy(v.copy())
+        assert opt.accumulate() == (k == 1)
+    assert opt.state_dict()["accumulation"]["mini_step"] == 0
+    opt.step()
+    np.testing.assert_array_equal(model.features["w"].detach().numpy(),
+                                  params["features"]["w"])
 
 
 def _tiny_jax_state(x, gt, **kw):
@@ -542,15 +556,25 @@ def test_log_every_sets_the_loss_log_stride(tmp_path):
     assert [r["iter"] for r in json.loads(open(loss_file).read())] == [2, 4]
 
 
-def test_unported_knobs_raise(tmp_path):
-    cfg = _cfg(tmp_path)
-    for kw in ({"grad_accum_steps": 2}, {"tensorboard_dir": "tb"},
-               {"debug_nans": True}):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-            driver.train(cfg.replace(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        driver.train(cfg, device="cpu", synthetic_learnable=True)
-    # encoder_init is ported: a missing file is a file error, not a refusal
+def test_unported_knobs_raise(tmp_path, monkeypatch):
+    """The driver's remaining knobs run, all at once: 4 micro-steps at
+    grad_accum_steps 2 (2 applied updates), TensorBoard events, anomaly
+    mode (on during the loop only) and the learnable synthetic captions;
+    a missing encoder_init file is a file error."""
+    monkeypatch.setattr(ckptlib, "save_checkpoint", lambda path, state: None)
+    cfg = _cfg(tmp_path, grad_accum_steps=2, debug_nans=True,
+               tensorboard_dir=str(tmp_path / "tb"))
+    out = driver.train(cfg, device="cpu", max_iter_override=4,
+                       eval_every_override=4, synthetic_images=12,
+                       synthetic_learnable=True, verbose=False)
+    assert out["iters"] == 4 and np.isfinite(out["final_loss"])
+    assert out["optimizer"].param_groups[0]["updates"] == 2
+    assert not torch.is_anomaly_enabled()
+    assert {"hair", "shirt"} <= set(out["loader"].vocab.token_to_idx)
+    assert list((tmp_path / "tb").glob("events.out.tfevents.*"))
+    loss_file = configs.name_model(cfg)[0]
+    assert [r["iter"] for r in json.loads(open(loss_file).read())] == [
+        1, 2, 3, 4]
     with pytest.raises(FileNotFoundError):
         driver.train(cfg.replace(encoder_init=str(tmp_path / "w.npz")),
                      device="cpu")

@@ -34,6 +34,10 @@ The attention-LSTM, Transformer and ViT-B captioners (a cut ResNet, a
 with greedy and beam-3 tokens identical; one train step after the
 finetune boundary in fp64 for the ResNet families as the LSTM's, and in
 fp32 for ViT-B with its encoder frozen (gradients within 1e-4).
+Gradient accumulation (2 micro-steps an update): the tiny RPN's averaged
+gradient within 1e-4 relative (all but 1 % of each tensor's elements)
+and its weights within 2·lr, kernels A and B once a micro-step; the tiny
+AlexCap's fp64 averaged gradient and statistics within 1e-8.
 """
 
 import numpy as np
@@ -411,6 +415,75 @@ def test_roi_kernels_on_rpn_sampled_boxes(card, dtype):
 
 
 @pytest.mark.cuda
+def test_tiny_rpn_accumulated_update_on_card_matches_cpu(card):
+    """Two fp32 RPN micro-steps at grad_accum_steps 2 on the card and on
+    the CPU, from the same weights and sampler keys, dropout off: the
+    weights bitwise unchanged after the first; the averaged gradient
+    before the update within 1e-4 relative to each tensor's largest in
+    all but 1 % of its elements; every weight within 2·lr after it;
+    kernels A and B launched once a micro-step, twice an update."""
+    from imagecaptioning_tpu_torch.config.dense_configs import \
+        get_densecap_config
+    from imagecaptioning_tpu_torch.train import dense_driver as dd
+
+    cfg = get_densecap_config().replace(
+        compute_dtype="float32", vgg_stages=3, input_encoding_size=16,
+        rnn_size=16, sampler_batch_size=16, anchor_sizes=(8.0, 16.0, 32.0),
+        grad_accum_steps=2)
+    twins = [dd.build_rpn_model(cfg, 24, 5, d)
+             for d in (torch.device("cpu"), card)]
+    twins[1].load_state_dict(seeded_init_(twins[0], 0).state_dict())
+    rng = np.random.RandomState(5)
+    batches = []
+    for _ in range(2):
+        boxes = np.stack([rng.uniform(16, 48, (2, 4)),
+                          rng.uniform(16, 48, (2, 4)),
+                          rng.uniform(8, 32, (2, 4)),
+                          rng.uniform(8, 32, (2, 4))], -1)
+        batches.append((
+            torch.from_numpy(rng.randint(0, 256, (2, 64, 64, 3),
+                                         dtype=np.uint8)),
+            torch.from_numpy(boxes.astype(np.float32)), torch.ones(2, 4),
+            torch.from_numpy(rng.randint(1, 25, (2, 4, 5))),
+            torch.from_numpy(rng.rand(2, 2, (64 // 8) ** 2 * 9)
+                             .astype(np.float32))))
+    grads = []
+    counters = (port_roi.roi_align_bwd_features, port_roi.roi_align_bwd_boxes)
+    before = [c.launches for c in counters]
+    for model in twins:
+        d = next(model.parameters()).device
+        model.recog_base[2].p = 0.0
+        opt = dd.make_dense_optimizer(cfg, model, 0)
+        seen = {}
+        opt.register_step_pre_hook(lambda *_, m=model, g=seen: g.update(
+            {n: p.grad.cpu().clone() for n, p in m.named_parameters()
+             if p.grad is not None}))
+        step = dd.make_rpn_train_step(model, opt,
+                                      torch.Generator(d).manual_seed(0))
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        for k, (images, boxes, mask, labels, keys) in enumerate(batches):
+            step(images.to(d), boxes.to(d), mask.to(d), labels.to(d),
+                 keys=tuple(keys.to(d)))
+            if k == 0:
+                assert not seen
+                for n, p in model.named_parameters():
+                    assert torch.equal(p, start[n]), n
+        grads.append(seen)
+    assert [c.launches for c in counters] == [b + 2 for b in before]
+    cpu_grads, card_grads = grads
+    assert cpu_grads and sorted(cpu_grads) == sorted(card_grads)
+    for name, want in cpu_grads.items():
+        w = want.double()
+        rel = ((card_grads[name].double() - w).abs()
+               / (w.abs() + w.abs().max()).clamp_min(1e-30))
+        assert float((rel > 1e-4).double().mean()) <= 0.01, name
+    cpu = dict(twins[0].named_parameters())
+    for name, p in twins[1].named_parameters():
+        d = (p.detach().cpu() - cpu[name].detach()).abs()
+        assert float(d.max()) <= 2 * cfg.learning_rate + 1e-7, name
+
+
+@pytest.mark.cuda
 def test_tiny_rpn_train_step_on_card_matches_cpu(card):
     """One fp32 RPN train step on the card and on the CPU, from the same
     weights and the same sampler keys, dropout off: each loss within 1e-4
@@ -494,33 +567,37 @@ def test_tiny_alexcap_on_card_matches_cpu(card):
     assert torch.equal(out[1][2], out[0][2])
 
 
-def _tiny_alexcap_step(device, dtype):
-    """One AlexCap finetune step (BatchNorm on batch statistics) in `dtype`
-    on `device` from seed 0's weights on a fixed batch → (loss, {name:
-    gradient before the update}, {name: running statistic after it}), on
-    the CPU."""
+def _tiny_alexcap_step(device, dtype, accum=1):
+    """One AlexCap finetune update (BatchNorm on batch statistics) in
+    `dtype` on `device` from seed 0's weights, from `accum` micro-steps of
+    2 images each → (the mean micro-loss, {name: gradient before the
+    update}, {name: running statistic after it}), on the CPU."""
     from imagecaptioning_tpu_torch.config.configs import get_lstm_config
     from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
     from imagecaptioning_tpu_torch.train import optim
     from imagecaptioning_tpu_torch.train.step import make_train_step
 
     rng = np.random.RandomState(8)
-    images = torch.from_numpy(rng.randint(0, 256, (2, 218, 178, 3),
+    images = torch.from_numpy(rng.randint(0, 256, (2 * accum, 218, 178, 3),
                                           dtype=np.uint8))
-    gt = torch.from_numpy(rng.randint(1, 31, (2, 6)))
+    gt = torch.from_numpy(rng.randint(1, 31, (2 * accum, 6)))
     seeded = seeded_init_(_tiny_alexcap(torch.device("cpu")), 0).state_dict()
     model = _tiny_alexcap(device)
     model.load_state_dict(seeded)
     model.to(dtype)
     model.features.compute_dtype = dtype
-    opt = optim.make_optimizer(get_lstm_config(), model, 10)
+    opt = optim.make_optimizer(
+        get_lstm_config().replace(grad_accum_steps=accum), model, 10)
     grads = {}
     opt.register_step_pre_hook(lambda *_: grads.update(
         {n: p.grad.cpu().clone() for n, p in model.named_parameters()}))
     step = make_train_step(
         model, opt, torch.Generator(device).manual_seed(0),
         lambda u8: resnet_v2_preprocess(u8, dtype=dtype), clip_norm=1.0)
-    loss = float(step(images.to(device), gt.to(device))["loss"])
+    loss = float(np.mean([float(step(images[i:i + 2].to(device),
+                                     gt[i:i + 2].to(device))["loss"])
+                          for i in range(0, 2 * accum, 2)]))
+    assert grads and opt.mini_step == 0
     stats = {k: v.cpu() for k, v in model.state_dict().items()
              if k.endswith(("running_mean", "running_var"))}
     return loss, grads, stats
@@ -536,6 +613,26 @@ def test_tiny_alexcap_train_step_on_card_matches_cpu(card):
     step is held by the next test)."""
     (loss0, g0, s0), (loss1, g1, s1) = (
         _tiny_alexcap_step(d, torch.float64)
+        for d in (torch.device("cpu"), card))
+    assert abs(loss1 - loss0) <= 1e-10 * abs(loss0)
+    assert sorted(g0) == sorted(g1)
+    for name, want in g0.items():
+        torch.testing.assert_close(g1[name], want, rtol=1e-8,
+                                   atol=1e-8 * float(want.abs().max()),
+                                   msg=name)
+    for name, want in s0.items():
+        torch.testing.assert_close(s1[name], want, rtol=1e-8, atol=1e-10,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_tiny_alexcap_accumulated_update_on_card_matches_cpu(card):
+    """Two fp64 micro-steps at grad_accum_steps 2 (one applied update) on
+    the card and on the CPU: the mean loss within 1e-10 relative, the
+    averaged gradient before the update and the running statistics after
+    both micro-steps within 1e-8."""
+    (loss0, g0, s0), (loss1, g1, s1) = (
+        _tiny_alexcap_step(d, torch.float64, accum=2)
         for d in (torch.device("cpu"), card))
     assert abs(loss1 - loss0) <= 1e-10 * abs(loss0)
     assert sorted(g0) == sorted(g1)

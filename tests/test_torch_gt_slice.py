@@ -199,7 +199,9 @@ def test_port_imports_nothing_of_jax():
     port = REPO / "imagecaptioning_tpu_torch"
     for name in ("models/backbones/vit.py", "utils/pretrained.py",
                  "train_LSTMwAttention.py", "train_Transformer.py",
-                 "train_ViTB.py", "models/captioners.py", "models/heads.py"):
+                 "train_ViTB.py", "models/captioners.py", "models/heads.py",
+                 "utils/tb.py", "utils/profiling.py",
+                 "train/optim_updates.py", "data/synthetic.py"):
         assert port / name in files, name
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

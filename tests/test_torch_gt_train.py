@@ -18,7 +18,9 @@ Also: the classifier's dropout rate, bf16 compute over fp32 master
 weights giving serving's bf16 numbers, checkpoints (round trip and resume
 order), `train_gt` and its CLI end to end with either head (the
 transformer's tests against JAX are in `test_torch_gt_transformer.py`),
-and the raise without CUDA.
+the raise without CUDA, gradient accumulation in `make_dense_optimizer`
+(its optax parity is in `test_torch_grad_accum.py`), and `encoder_init`
+of `features` and `classifier` from JAX's own init: logits within 1e-4.
 """
 
 import json
@@ -349,9 +351,32 @@ def test_train_state_from_jax_resumes_like_optax():
 
 
 def test_gradient_accumulation_is_refused():
-    cfg = get_gt_config().replace(grad_accum_steps=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dense_driver.make_dense_optimizer(cfg, GTDenseCaptioner(**KW), 3)
+    """grad_accum_steps 2 (once refused) builds: two micro-steps of
+    gradients make one update by their mean, the weights unchanged after
+    the first (the MultiSteps parity is in test_torch_grad_accum.py)."""
+    cfg = get_gt_config().replace(grad_accum_steps=2, use_lstm=True)
+    model = GTDenseCaptioner(**KW)
+    opt = dense_driver.make_dense_optimizer(cfg, model, 3)
+    assert opt.every == 2
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    rng = np.random.RandomState(0)
+    grads = [{n: torch.from_numpy(rng.randn(*p.shape).astype(np.float32))
+              for n, p in model.named_parameters() if p.requires_grad}
+             for _ in range(2)]
+    for k, g in enumerate(grads):
+        for n, p in model.named_parameters():
+            if p.requires_grad:
+                p.grad = g[n].clone()
+        if opt.accumulate():
+            for n, p in model.named_parameters():
+                if p.requires_grad:       # the mean reached the optimizer
+                    torch.testing.assert_close(
+                        p.grad, grads[0][n] + (grads[1][n] - grads[0][n]) / 2,
+                        rtol=0, atol=0)
+            opt.step()
+        moved = [not torch.equal(p, start[n])
+                 for n, p in model.named_parameters()]
+        assert any(moved) == (k == 1), k
 
 
 def test_teacher_prob_schedule_matches_jax():
@@ -582,3 +607,63 @@ def test_gt_evaluator_matches_jax():
     g, w = got.evaluate(), want.evaluate()
     assert g["map"] == w["map"] and g["meteor"] == w["meteor"]
     assert g["ap_breakdown"] == w["ap_breakdown"] and g["map"] > 0
+
+
+# --------------------------------------------------------- encoder_init
+
+def _write_npz(path, tree):
+    """A converted module's `.npz` in the JAX package's layout: its flax
+    params under `params/`, `/`-joined."""
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}/{k}")
+            else:
+                flat[f"{prefix}/{k}"] = np.asarray(v)
+    walk(tree, "params")
+    np.savez(path, **flat)
+    return str(path)
+
+
+def test_encoder_init_features_and_classifier_match_jax(pair, tmp_path):
+    """`features` and `classifier` written from the JAX model's own init
+    into a differently seeded port model (its head from the same JAX
+    params): the logits within 1e-4 of JAX's; a partial file raises in
+    both packages."""
+    from imagecaptioning_tpu.train.step import TrainState
+    from imagecaptioning_tpu.utils import pretrained as jax_pretrained
+    from imagecaptioning_tpu_torch.utils import pretrained
+
+    jm, params, _, (x, boxes, labels, _) = pair
+    features = _write_npz(tmp_path / "features.npz", params["features"])
+    classifier = _write_npz(tmp_path / "classifier.npz", params["classifier"])
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x),
+                               jnp.asarray(boxes), jnp.asarray(labels),
+                               train=False).logits)
+    model = seeded_init_(GTDenseCaptioner(**KW), 1)
+    model.load_state_dict({k: v for k, v in gt_state_dict_from_jax(
+        params).items() if k.startswith("llm.")}, strict=False)
+
+    def logits():
+        with torch.no_grad():
+            return model(*_t(x, boxes), torch.from_numpy(labels).long()
+                         ).logits.numpy()
+    assert np.abs(logits() - want).max() > 1e-3
+    pretrained.apply_encoder_init(model, f"{features},classifier={classifier}",
+                                  "features")
+    np.testing.assert_allclose(logits(), want, rtol=1e-4, atol=1e-4)
+    state = TrainState(0, params, None, {}, None)
+    jax_pretrained.apply_encoder_init(state, f"classifier={classifier}",
+                                      "features")
+    partial = dict(params["classifier"])
+    del partial["fc7"]
+    partial = _write_npz(tmp_path / "partial.npz", partial)
+    for apply in (
+            lambda: pretrained.apply_encoder_init(
+                model, f"classifier={partial}", "features"),
+            lambda: jax_pretrained.apply_encoder_init(
+                state, f"classifier={partial}", "features")):
+        with pytest.raises(ValueError, match="fc7"):
+            apply()

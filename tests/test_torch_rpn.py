@@ -19,7 +19,9 @@ Same numpy inputs and the same (converted) weights on both sides:
   `generate_captions` tokens identical;
 - the converter's round trip, `apply_box_decay`, and the transformer
   decode past its position table (the cache sized by the step count):
-  greedy and beam-3 tokens identical to JAX's, logits within 1e-4.
+  greedy and beam-3 tokens identical to JAX's, logits within 1e-4;
+- `encoder_init` of `conv_trunk` and `recog_base` from JAX's own init:
+  `forward_test` within 1e-4, keep identical; a partial file raises.
 """
 
 import jax
@@ -490,3 +492,52 @@ def test_transformer_decode_runs_past_its_position_table(transformer_pair):
         greedy = decoding.greedy_decode(step2, carry2, enc.shape[0],
                                         pm.spec.start, steps)
     assert np.array_equal(greedy.numpy(), np.asarray(want_greedy))
+
+
+def test_encoder_init_conv_trunk_matches_jax(rpn_pair, tmp_path):
+    """`conv_trunk` (the RPN's default module) and `recog_base` written
+    from the JAX model's own init into a differently seeded port model
+    (its other weights from the same JAX params): `forward_test` boxes and
+    scores within 1e-4 of JAX's, keep identical; a file without a conv of
+    the trunk raises in both packages."""
+    from imagecaptioning_tpu.train.step import TrainState
+    from imagecaptioning_tpu.utils import pretrained as jax_pretrained
+    from imagecaptioning_tpu_torch.utils import pretrained
+
+    def write(name, tree):
+        flat = {f"params/{layer}/{leaf}": np.asarray(v)
+                for layer, leaves in tree.items()
+                for leaf, v in leaves.items()}
+        np.savez(tmp_path / name, **flat)
+        return str(tmp_path / name)
+
+    jm, params, _ = rpn_pair[True]
+    x = _model_inputs()[0]
+    bj, sj, _, kj = jm.apply({"params": params}, jnp.asarray(x),
+                             method=jm.forward_test)
+    trunk = write("trunk.npz", params["conv_trunk"])
+    recog = write("recog.npz", params["recog_base"])
+    model = seeded_init_(DenseCapRPN(with_captioning=True, **KW), 1)
+    model.load_state_dict({k: v for k, v in rpn_state_dict_from_jax(
+        params).items() if not k.startswith(("conv_trunk.", "recog_base."))},
+        strict=False)
+    pretrained.apply_encoder_init(model, f"{trunk},recog_base={recog}",
+                                  "conv_trunk")
+    with torch.no_grad():
+        bt, st, _, kt = model.forward_test(torch.from_numpy(x))
+    assert np.array_equal(kt.numpy(), np.asarray(kj))
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bj), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-4,
+                               atol=1e-4)
+    partial = {k: v for k, v in params["conv_trunk"].items()
+               if k != "conv2_2"}
+    partial = write("partial.npz", partial)
+    state = TrainState(0, params, None, {}, None)
+    for apply in (
+            lambda: pretrained.apply_encoder_init(model, partial,
+                                                  "conv_trunk"),
+            lambda: jax_pretrained.apply_encoder_init(state, partial,
+                                                      "conv_trunk")):
+        with pytest.raises(ValueError, match="conv2_2"):
+            apply()

@@ -12,7 +12,9 @@ JAX package, at a tiny size (2 VGG stages, 32–64² images, narrow heads).
 - `rpn_proposer` within 1e-5 of JAX's; `get_densecap_config` equal;
 - the train step (keys and dropout from the trainer's generator),
   `train_DenseCap … --device cpu` for 2 steps with finite losses and a
-  resume, and the raise without `--device cpu` where there is no card.
+  resume, with each of `grad_accum_steps`, `encoder_init` and
+  `tensorboard_dir`, and the raise without `--device cpu` where there is
+  no card.
 """
 
 import json
@@ -357,10 +359,39 @@ def test_train_densecap_cli_trains_and_resumes(tmp_path):
 @pytest.mark.parametrize("knob", ["grad_accum_steps=2", "encoder_init=x.npz",
                                   "tensorboard_dir=tb"])
 def test_train_densecap_refuses_unported_knobs(tmp_path, knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_DenseCap.main(_cli_args(tmp_path, max_iters=1) + [knob,
-                                                                "--device",
-                                                                "cpu"])
+    """Each knob the CLI once refused runs two steps: 2 micro-steps make
+    one update; a converted 2-stage `conv_trunk` file (conv1/conv2, which
+    stay frozen) is the trunk after training; TensorBoard events are
+    written."""
+    key, value = knob.split("=")
+    if key == "encoder_init":
+        rng = np.random.RandomState(0)
+        trunk, cin = {}, 3
+        for name, cout in (("conv1_1", 64), ("conv1_2", 64),
+                           ("conv2_1", 128), ("conv2_2", 128)):
+            trunk[f"params/{name}/kernel"] = (
+                rng.randn(3, 3, cin, cout) * 0.05).astype(np.float32)
+            trunk[f"params/{name}/bias"] = rng.randn(cout).astype(np.float32)
+            cin = cout
+        np.savez(tmp_path / value, **trunk)
+        value = str(tmp_path / value)
+    elif key == "tensorboard_dir":
+        value = str(tmp_path / value)
+    out = train_DenseCap.main(
+        _cli_args(tmp_path, max_iters=2, save_checkpoint_every=2)
+        + [f"{key}={value}", "--device", "cpu"])
+    assert out["iters"] == 2
+    assert all(np.isfinite(v) for v in out["final_losses"].values())
+    opt = out["optimizer"]
+    steps = {int(s["step"]) for s in opt.state.values()}
+    assert steps == ({1} if key == "grad_accum_steps" else {2})
+    if key == "encoder_init":
+        want = trunk["params/conv2_2/kernel"].transpose(3, 2, 0, 1)
+        np.testing.assert_array_equal(
+            out["model"].conv_trunk[7].weight.detach().numpy(), want)
+    if key == "tensorboard_dir":
+        assert list((tmp_path / "tb").glob("events.out.tfevents.*"))
+    shutil.rmtree(tmp_path / "models")
 
 
 def test_train_densecap_raises_without_cuda(monkeypatch, tmp_path):
