@@ -4,8 +4,9 @@ dense-caption serving and training on one CUDA card, with the LSTM head
 (phases 4–9) and the transformer head (phases 10–11), the full RPN
 DenseCap model's training and serving (phases 12–15), the four
 AlexCap families: the LSTM captioner on ResNet-101 (phases 16–18), the
-attention-LSTM (19), the Transformer (20) and ViT-B (21), and gradient
-accumulation in the RPN (22) and AlexCap LSTM (23) trainers.
+attention-LSTM (19), the Transformer (20) and ViT-B (21), gradient
+accumulation in the RPN (22) and AlexCap LSTM (23) trainers, the
+trainers' own periodic evals (24) and `evidence_run` (25).
 
     python3 chip_smoke.py
 
@@ -40,8 +41,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    the trunk's own output, and the ROI stage (trunk output → fc6 input)
    as four launches (widen, NHWC entry, CHW copy, narrow) beside the
    fused entry, timed as in 3 and by the profiler (CUPTI);
-5. the kernels' own device time (CUPTI), hot and cold, of phase 3's
-   entries, and a profile of one greedy and one beam decode;
+5. the kernels' own device time (CUPTI, the mean of 50 launches), hot
+   and cold, of phase 3's entries (and of 7's and 12's), and a profile
+   of one greedy and one beam decode;
 6. the same full-width weights in fp32 on the card against the CPU on a
    small input: teacher-forced logits within 1e-4 (the fused entry
    writes fp32 codes there);
@@ -66,8 +68,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    `VGDataLoader` of 10 in-memory 720² uint8 images (8 in the train split,
    so the encoder's lr turns on at update 8, inside the run) × 32 regions
    with captions over a 10,000-word vocabulary, batch 4: 2 warm-up steps,
-   then 3 windows of 12 steps, each timed by CUDA events (loss per step;
-   steps/s, images/s and regions/s at the median window; peak memory;
+   then 2 windows of 12 steps, each timed by CUDA events (loss per step;
+   steps/s, images/s and regions/s at the windows' median; peak memory;
    each ROI wrapper's launches: kernel A once per step, kernel B never),
    one profiled step (the card's busy time: its kernels and copies), and
    a full checkpoint saved and restored bitwise;
@@ -128,8 +130,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ResNet-101 in bf16 over bf16 weights, LSTM 768, embedding 1024, the
    head fp32, vocab 2,048 + 3, 17 steps): 64 uint8 218×178 images on the
    card → `resnet_v2_preprocess` → greedy and beam-3 (raw-logit) decode;
-   captions/s from CUDA events over 5 calls after a warm-up, before this
-   phase's profiler; the median card busy time of 3 profiled calls each,
+   captions/s from CUDA events over 3 calls after a warm-up, before this
+   phase's profiler; the card busy time of 2 profiled calls each (the
+   larger),
    its idle share against the event-timed call, kernels a call and by
    kind; no ROI kernel launched; then the weights in fp32 on the card
    against the CPU on 2 images: teacher-forced logits within 1e-4, greedy
@@ -138,10 +141,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    encoder and head groups, clip 1.0) over 100 synthetic CelebA-size
    images (96 train) with 16-token captions over 2,048 words, the train
    split staged on the card and fed index batches (which must equal the
-   streaming path's): 2 warm-up and 12 event-timed steps in the frozen
+   streaming path's): 2 warm-up and 6 event-timed steps in the frozen
    phase (trunk in eval mode, no gradient, no Adam state), then the same
    in the finetune phase (BatchNorm on batch statistics, the trunk
-   trained): images/s, busy (median of 3 profiled steps), idle share,
+   trained): images/s, busy (the larger of 2 profiled steps), idle share,
    kernels a step and peak memory each; a checkpoint (model with its
    BatchNorm buffers, optimizer, generator, step, iterators) restored
    bitwise;
@@ -170,7 +173,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    fp32;
 22. RPN training at grad_accum_steps 2 (`get_densecap_config()` as in
    13, bf16 over fp32 masters) on `make_learnable_vg_arrays(16, 720²)`,
-   4 images a micro-step: 2 warm-up updates, then 3 windows of 6 applied
+   4 images a micro-step: 2 warm-up updates, then 2 windows of 6 applied
    updates timed by events (ms an update, images/s, peak GB); K1, A and B
    launched twice an applied update (their counts over the windows); the
    busy ms of a profiled update; the first and last window's mean loss;
@@ -187,8 +190,27 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    into a window, restored, and the window finished bitwise as without
    the stop; one update from two micro-steps in fp64 on the card against
    the CPU, held as in 18; and, as information, whether
-   `torch.utils.tensorboard` and `h5py` import.
-Every line of phases 4–23 carries the card's name and power limit. The
+   `torch.utils.tensorboard` and `h5py` import;
+24. the trainers with their own evals, at full width: `train_gt` on the
+   default GT config (transformer head, VGG16, bf16 over fp32 masters)
+   and `train_rpn` on the default DenseCap config, on
+   `make_learnable_vg_arrays(16, 720²)` at batch 4, and the AlexCap LSTM
+   `train` (ResNet-101) on `make_learnable_face2text_arrays(40)` at batch
+   12: 4 steps, a val eval after 2 and 4 (mAP and METEOR from the port's
+   scorer; BLEU, BLEU-4 and CIDEr-D for AlexCap), the best checkpoint
+   kept; each eval's seconds and ROI launches, the best checkpoint's path
+   and iteration; then one test-split eval each with records (GT beam-3,
+   `eval_split_rpn(max_images=2)`, AlexCap beam-3), whose records, scored
+   again on the host, must give the eval's numbers;
+25. `python -m imagecaptioning_tpu_torch.evidence_run` for `gt` and `rpn`
+   (`--epochs 2 --images 24`, its CPU-sized trunks, fp32) on the card:
+   the JAX script's artifact names, `summary_*.json` with
+   `final_test.ap_results.map`, `history`, `truncated` and the scorer's
+   provenance, `densecap_draw` of the RPN's test detections (PIL); where
+   matplotlib imports, also `--model lstm_attention` (batch 3) and its
+   attention overlay, else `"alexcap_evidence": "not run: no
+   matplotlib"`.
+Every line of phases 4–25 carries the card's name and power limit. The
 kernels line counts each kernel's launches over every path that runs it
 (`launches`, split in `launches_by_path`): the fused forward in both GT
 heads' serving and training and in RPN training (`rpn_training`, one a
@@ -199,13 +221,17 @@ all three in phase 22, twice an applied update (`rpn_training_k2`,
 `launches_per_applied_update_k2`);
 the AlexCap paths launch none of them (`alexcap_serving`,
 `alexcap_training`, and `alexcap_<family>_serving` and `_training` for
-the other three: 0).
+the other three: 0); phase 24's trainers (`gt_trainer_with_evals`: K1 and
+A; `rpn_trainer_with_evals`: all three; `alexcap_trainer_with_evals`: 0)
+with their evals' share (`gt_trainer_evals`, `rpn_trainer_evals`: K1
+only), and phase 25's runs (`evidence_gt`, `evidence_rpn`).
 The last three lines: the card as nvidia-smi reports it, one JSON line of
 per-kernel numbers, and {"ok": true, "device": ...}. The profiler's full
 tables go to <out-dir>/chip_smoke_*_profile.txt, one for each profiled
 decode or step (`--out-dir`, default
-build/chip_smoke), where the checkpoints of phases 8, 11, 13, 17 and
-19-21 are written and removed.
+build/chip_smoke), where the checkpoints of phases 8, 11, 13, 17,
+19-21 and 24-25 are written and removed (phase 25's artifacts stay under
+`evidence/`).
 """
 
 from __future__ import annotations
@@ -238,16 +264,20 @@ GRAD_SHARE_TOL = 0.01
 # the backward's outputs beyond 32 a side or 256 cells (general kernels)
 GENERAL_BWD_SHAPES = ((33, 2), (17, 16), (9, 40))
 TRAIN_IMAGES, TRAIN_SPLIT, TRAIN_IMAGE = 10, 8, 720
-TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_WINDOWS = 4, 2, 12, 3
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_WINDOWS = 4, 2, 12, 2
 LOSS_REL_TOL = 1e-4
 # RPN serving: images a call, proposals kept an image (the DenseCap
 # config's 1000 capped at 300, as build_rpn_model does), timed calls
-RPN_IMAGES, RPN_PROPOSALS, RPN_SERVE_CALLS = 4, 300, 3
+RPN_IMAGES, RPN_PROPOSALS, RPN_SERVE_CALLS = 4, 300, 2
 # kinds of the card's work in a profiled training step, by kernel name
 # (the first match wins; the rest is elementwise work and reductions)
-# profiled calls of each decode or step: the busy time read is their
-# median (the profiler sometimes drops a call's events)
-PROFILED_CALLS = 3
+# profiled calls of each decode or step: the busy time read is the
+# larger of the two (the profiler sometimes drops a call's events, which
+# only lowers a call's busy time; the card's own spread is ±1 %)
+PROFILED_CALLS = 2
+# launches a CUPTI mean is taken over (the kernels' device times are
+# steady; the profiler's cost grows with the events it records)
+CUPTI_CALLS = 50
 KERNEL_KINDS = (("convolution (cuDNN)", ("fprop", "dgrad", "wgrad")),
                 ("matrix product (cuBLAS)", ("gemm",)),
                 ("optimizer (foreach)", ("multi_tensor_apply",)),
@@ -255,6 +285,16 @@ KERNEL_KINDS = (("convolution (cuDNN)", ("fprop", "dgrad", "wgrad")),
                 ("sort (RPN sampler)", ("Sort", "sort")),
                 ("max-pool", ("max_pool",)),
                 ("host-to-card copy", ("Memcpy HtoD",)))
+
+
+def roi_counts(roi) -> dict:
+    """Each ROI wrapper's launch count."""
+    return {name: getattr(roi, name).launches for name in ROI_WRAPPERS}
+
+
+def zero_roi_counts(roi) -> None:
+    for name in ROI_WRAPPERS:
+        getattr(roi, name).launches = 0
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -513,7 +553,7 @@ def roi_stage(roi, feats, boxes, hw, flush):
     res = {name: {} for name, _ in order}
     for name, fn in order + order[::-1]:
         for k, t in {**timings(fn, 50, flush),
-                     **cupti_times(fn, 50, flush)}.items():
+                     **cupti_times(fn, CUPTI_CALLS, flush)}.items():
             res[name].setdefault(k, []).append(t)
     for v in res.values():
         for k in list(v):
@@ -551,13 +591,12 @@ def serve(dev, model, api, normalize_images, roi, flush, label="serving",
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    for name in ROI_WRAPPERS:
-        getattr(roi, name).launches = 0
+    zero_roi_counts(roi)
     t0 = time.perf_counter()
     greedy_ms = cuda_ms(run_greedy, iters=5, warmup=0)
     beam_ms = cuda_ms(run_beam, iters=5, warmup=0)
     wall_s = time.perf_counter() - t0
-    launches = {name: getattr(roi, name).launches for name in ROI_WRAPPERS}
+    launches = roi_counts(roi)
     if launches["roi_align_batch_chw"] != 10:     # one per forward
         raise AssertionError(f"the fused ROI entry was launched "
                              f"{launches['roi_align_batch_chw']} times in "
@@ -616,11 +655,12 @@ def serve(dev, model, api, normalize_images, roi, flush, label="serving",
 
 def profiled(fn, out_dir: Path, table: str, calls: int = PROFILED_CALLS):
     """`calls` profiled calls of `fn` (each synchronised) → the median call
-    by the card's busy ms: its wall ms, busy ms (kernels and copies, not
+    by the card's busy ms (of 2, the larger): its wall ms, busy ms (kernels and copies, not
     the optimizer's annotated ranges nor the profiler's buffers), the busy
     ms of every call, kernels and copies, busy ms and counts by kind
     (KERNEL_KINDS) and the top kernels; its table goes to `out_dir`/`table`.
-    The profiler sometimes drops a call's events, hence the median."""
+    The profiler sometimes drops a call's events, which only lowers a
+    call's busy time, hence the median."""
     from torch.profiler import ProfilerActivity, profile as prof
     runs = []
     for _ in range(calls):
@@ -854,7 +894,9 @@ def make_train_data(rng):
 
 
 def same_state(a, b) -> bool:
-    """Two (optimizer or model) state dicts equal, tensors bitwise."""
+    """Two (optimizer or model) state dicts equal, tensors bitwise (on
+    the first one's device, so that a card's state is not copied off
+    it)."""
     if isinstance(a, dict):
         return a.keys() == b.keys() and all(same_state(a[k], b[k])
                                             for k in a)
@@ -862,7 +904,7 @@ def same_state(a, b) -> bool:
         return len(a) == len(b) and all(map(same_state, a, b))
     if isinstance(a, torch.Tensor):
         return (a.dtype == b.dtype and a.shape == b.shape
-                and torch.equal(a.cpu(), b.cpu()))
+                and torch.equal(a, b.to(a.device)))
     return a == b
 
 
@@ -933,8 +975,7 @@ def train(dev, roi, out_dir: Path, kind="lstm", label="training", card="",
     run(TRAIN_WARMUP)
     torch.cuda.synchronize()
     encoder_still_before = torch.equal(encoder, encoder0)
-    for name in ROI_WRAPPERS:
-        getattr(roi, name).launches = 0
+    zero_roi_counts(roi)
     torch.cuda.reset_peak_memory_stats()
     # the step's host side (a Python LSTM loop and autograd) varies run to
     # run: several windows, each timed by events
@@ -949,7 +990,7 @@ def train(dev, roi, out_dir: Path, kind="lstm", label="training", card="",
         torch.cuda.synchronize()
         window_ms.append(start.elapsed_time(end) / TRAIN_STEPS)
     wall_s = time.perf_counter() - t0
-    launches = {name: getattr(roi, name).launches for name in ROI_WRAPPERS}
+    launches = roi_counts(roi)
     step_ms = float(np.median(window_ms))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     encoder_moved_after = not torch.equal(encoder, encoder0)
@@ -1266,7 +1307,7 @@ def check_rpn_roi(dev, roi, feats, boxes, sample, iters, flush, card=""):
         res = {"card": card, "shape": shape, "boxes": boxes_desc,
                **check(got, plain()), "deterministic": True,
                **roofline(reads, got, flops), **timings(kernel, iters, flush),
-               **cupti_times(kernel, iters, flush),
+               **cupti_times(kernel, CUPTI_CALLS, flush),
                "plain_ms": cuda_ms(plain, iters // 4),
                "library_ms": device_ms(lib, iters // 4, flush),
                "library_ms_hot": device_ms(lib, iters // 4),
@@ -1318,10 +1359,9 @@ def serve_rpn(dev, build, normalize_images, roi, out_dir, card=""):
                         model.generate_captions(codes, SEQ + 1))
     run()                                       # warm-up
     torch.cuda.synchronize()
-    for name in ROI_WRAPPERS:
-        getattr(roi, name).launches = 0
+    zero_roi_counts(roi)
     call_ms = cuda_ms(run, iters=RPN_SERVE_CALLS, warmup=0)
-    launches = {name: getattr(roi, name).launches for name in ROI_WRAPPERS}
+    launches = roi_counts(roi)
     if launches["roi_align_batch_chw"] != RPN_SERVE_CALLS:
         raise AssertionError(f"RPN serving ROI launches in "
                              f"{RPN_SERVE_CALLS} calls: {launches}")
@@ -1430,8 +1470,8 @@ def rpn_reference_check(dev, build, card=""):
 # --------------------------------- phases 16-21: the AlexCap families
 
 ALEX_IMAGES, ALEX_HW, ALEX_VOCAB, ALEX_SEQ = 64, (218, 178), 2048, 16
-ALEX_CALLS = 5
-ALEX_TRAIN_IMAGES, ALEX_WARMUP, ALEX_STEPS = 100, 2, 12
+ALEX_CALLS = 3
+ALEX_TRAIN_IMAGES, ALEX_WARMUP, ALEX_STEPS = 100, 2, 6
 BN_TOL = 1e-5
 ALEX_LOSS_TOL = 1e-5
 # phase 18's fp32 gate: the card's fp32 step may be no further from the
@@ -1494,9 +1534,9 @@ def alexcap_serve(dev, roi, out_dir: Path, card="", model_type="lstm"):
     (raw-logit) decode through `models.api`, with the attention maps of
     every step (not the LSTM's, which has none). captions/s from CUDA
     events over ALEX_CALLS calls after a warm-up and before this phase's
-    profiler; then the median card busy time of PROFILED_CALLS profiled
-    calls each, its idle share against the event-timed call, and the
-    kernels a call. No ROI kernel runs on this path: every ROI wrapper's
+    profiler; then the median (of 2, the larger) card busy time of
+    PROFILED_CALLS profiled calls each, its idle share against the
+    event-timed call, and the kernels a call. No ROI kernel runs on this path: every ROI wrapper's
     count stays 0."""
     from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
     from imagecaptioning_tpu_torch.models import api
@@ -1526,11 +1566,10 @@ def alexcap_serve(dev, roi, out_dir: Path, card="", model_type="lstm"):
         fn()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for name in ROI_WRAPPERS:
-        getattr(roi, name).launches = 0
+    zero_roi_counts(roi)
     greedy_ms = cuda_ms(run_greedy, iters=ALEX_CALLS, warmup=0)
     beam_ms = cuda_ms(run_beam, iters=ALEX_CALLS, warmup=0)
-    launches = {name: getattr(roi, name).launches for name in ROI_WRAPPERS}
+    launches = roi_counts(roi)
     if any(launches.values()):
         raise AssertionError(f"ROI kernels launched on the AlexCap path: "
                              f"{launches}")
@@ -1756,11 +1795,10 @@ def alexcap_train(dev, roi, out_dir: Path, card="", model_type="lstm"):
         run(ALEX_WARMUP)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for r in ROI_WRAPPERS:
-            getattr(roi, r).launches = 0
+        zero_roi_counts(roi)
         ms = cuda_ms(lambda: run(1), iters=ALEX_STEPS, warmup=0)
         peak = torch.cuda.max_memory_allocated() / 1e9
-        launches = {r: getattr(roi, r).launches for r in ROI_WRAPPERS}
+        launches = roi_counts(roi)
         if any(launches.values()):
             raise AssertionError(f"ROI kernels launched on the AlexCap "
                                  f"path: {launches}")
@@ -2088,7 +2126,7 @@ ACCUM = 2
 # phase 22: learnable VG images at 720², their 4 regions each; warm-up
 # updates, then windows of updates, each timed by events
 RPN_ACCUM_IMAGES, RPN_ACCUM_REGIONS = 16, 4
-RPN_ACCUM_WARMUP, RPN_ACCUM_UPDATES, RPN_ACCUM_WINDOWS = 2, 6, 3
+RPN_ACCUM_WARMUP, RPN_ACCUM_UPDATES, RPN_ACCUM_WINDOWS = 2, 6, 2
 ACCUM_KERNELS = ("roi_align_batch_chw", "roi_align_bwd_features",
                  "roi_align_bwd_boxes")
 # phase 23: learnable Face2Text images; the finetune boundary at this
@@ -2156,8 +2194,7 @@ def rpn_accum_train(dev, roi, out_dir: Path, card=""):
     for _ in range(RPN_ACCUM_WARMUP):
         update()
     torch.cuda.synchronize()
-    for name in ROI_WRAPPERS:
-        getattr(roi, name).launches = 0
+    zero_roi_counts(roi)
     torch.cuda.reset_peak_memory_stats()
     window_ms = []
     for _ in range(RPN_ACCUM_WINDOWS):
@@ -2169,7 +2206,7 @@ def rpn_accum_train(dev, roi, out_dir: Path, card=""):
         end.record()
         torch.cuda.synchronize()
         window_ms.append(start.elapsed_time(end) / RPN_ACCUM_UPDATES)
-    launches = {name: getattr(roi, name).launches for name in ROI_WRAPPERS}
+    launches = roi_counts(roi)
     updates = RPN_ACCUM_WINDOWS * RPN_ACCUM_UPDATES
     per_update = {k: launches[k] / updates for k in ACCUM_KERNELS}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2275,8 +2312,7 @@ def alexcap_accum_train(dev, roi, out_dir: Path, card=""):
     def update():
         for _ in range(ACCUM):
             micro_step()
-    for r in ROI_WRAPPERS:
-        getattr(roi, r).launches = 0
+    zero_roi_counts(roi)
     timed = {}
     for name, n in (("frozen", frozen_updates),
                     ("finetune", ALEX_ACCUM_UPDATES - frozen_updates)):
@@ -2287,7 +2323,7 @@ def alexcap_accum_train(dev, roi, out_dir: Path, card=""):
         timed[name] = {"updates_timed": n - 1, "update_ms": ms,
                        "images_per_s": ACCUM * bs / ms * 1e3,
                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    launches = {r: getattr(roi, r).launches for r in ROI_WRAPPERS}
+    launches = roi_counts(roi)
     # micro-step i ends applied update i // ACCUM + 1 when i % ACCUM is last
     unchanged_through = [i for i in range(len(trunk))
                          if torch.equal(trunk[i], w0)]
@@ -2399,6 +2435,324 @@ def alexcap_accum_step_check(dev, card=""):
     return res
 
 
+# ------------------------------ phase 24: the trainers' evals on the card
+
+# learnable VG images at 720² (12 train, 2 val, 2 test) and Face2Text
+# images (28 train, 6 val, 6 test); 4 steps, an eval after 2 and 4
+EVAL_VG_IMAGES, EVAL_FACE_IMAGES, EVAL_STEPS, EVAL_EVERY = 16, 40, 4, 2
+EVAL_SPLIT_IMAGES = 2         # eval_split_rpn(max_images=...) on the card
+
+
+class EvalLog:
+    """Wraps an eval function of a module for a trainer's run: each call's
+    seconds (synchronised), the ROI launches it made and its scores."""
+
+    def __init__(self, module, name: str, roi):
+        self.module, self.name, self.roi = module, name, roi
+        self.orig = getattr(module, name)
+        self.calls = []
+
+    def __enter__(self):
+        def run(*a, **k):
+            before = roi_counts(self.roi)
+            t0 = time.perf_counter()
+            out = self.orig(*a, **k)
+            torch.cuda.synchronize()
+            after = roi_counts(self.roi)
+            ap = out["ap_results"]
+            self.calls.append({
+                "split": k.get("split", a[2] if len(a) > 2 else 1),
+                "seconds": time.perf_counter() - t0,
+                "num_images": out["num_images"],
+                "scores": {k: ap[k] for k in ("map", "meteor", "bleu",
+                                              "bleu4", "cider", "detmap")
+                           if k in ap},
+                "roi_launches": {n: after[n] - before[n] for n in after}})
+            return out
+        setattr(self.module, self.name, run)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+        return False
+
+
+def rescored(records, eval_out, dense: bool) -> dict:
+    """The records of a card eval scored again on the host by the port's
+    scorer: the same numbers, or an AssertionError."""
+    from imagecaptioning_tpu_torch.eval import dense_eval, scorer
+    ap = eval_out["ap_results"]
+    if dense:
+        got = {"meteor": dense_eval.score_records(records)["average_score"]}
+    else:
+        blob = scorer.score_captions(records)
+        got = {k: blob[k] for k in ("meteor", "bleu", "bleu4", "cider")}
+    want = {k: ap[k] for k in got}
+    if got != want or not records:
+        raise AssertionError(f"records rescored {got} != the eval's {want} "
+                             f"({len(records)} records)")
+    return {"records": len(records), "scores": got, "equal": True}
+
+
+def trainer_evals(dev, roi, out_dir: Path, card=""):
+    """Phase 24: three trainers at full width on the card, each with its
+    own periodic eval and best-checkpoint selection: `train_gt` on the
+    default GT config (transformer head, VGG16, bf16 over fp32 masters)
+    and `train_rpn` on the default DenseCap config, both on
+    `make_learnable_vg_arrays(16, 720²)` at batch 4, and the AlexCap
+    LSTM's `train` (ResNet-101) on `make_learnable_face2text_arrays(40)`
+    at batch 12; EVAL_STEPS steps with an eval every EVAL_EVERY (val mAP,
+    METEOR; BLEU, BLEU-4 and CIDEr-D for AlexCap; the eval's seconds and
+    ROI launches, the scorer's provenance, the best checkpoint's path and
+    iteration). Then one more card eval each, with records:
+    `eval_split_gt(use_beam=True)`, `eval_split_rpn(max_images=2)` and
+    AlexCap `eval_split(use_beam=True)` on the test split; those records,
+    scored again on the host, must give the eval's numbers. ROI launches
+    over each trainer's run (counts zeroed before it): K1 and A for GT,
+    K1, A and B for the RPN, none for AlexCap."""
+    from functools import partial
+
+    from imagecaptioning_tpu_torch.config.configs import get_lstm_config
+    from imagecaptioning_tpu_torch.config.dense_configs import (
+        get_densecap_config, get_gt_config)
+    from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
+    from imagecaptioning_tpu_torch.eval import dense_eval, eval_split, scorer
+    from imagecaptioning_tpu_torch.models.captioners import DTYPES
+    from imagecaptioning_tpu_torch.train import dense_driver as dd
+    from imagecaptioning_tpu_torch.train import driver
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def paths(cfg, name):
+        return cfg.replace(
+            data_h5="/nonexistent", from_checkpoint=False,
+            loss_file=str(out_dir / f"loss_history_{name}.json"),
+            result_file=str(out_dir / f"results_history_{name}.json"),
+            save_path=str(out_dir / f"best_model_{name}.ckpt"))
+
+    def summarise(summary, log, launches, seconds):
+        with open(summary["result_file"]) as f:
+            hist = json.load(f)
+        ckpt = summary["save_path"]
+        val = [c for c in log.calls if c["split"] == 1]
+        res = {"card": card, "iters": summary["iters"],
+               "evals": [{"iter": h["iter"], **c}
+                         for h, c in zip(hist, val)],
+               "test_evals_of_the_driver": [c for c in log.calls
+                                            if c["split"] != 1],
+               "best_val_score": summary["best_val_score"],
+               "best_iter": summary["best_iter"],
+               "best_checkpoint": ckpt,
+               "best_checkpoint_gb": (Path(ckpt).stat().st_size / 1e9
+                                      if Path(ckpt).is_file() else None),
+               "scorer": hist[-1]["ap_results"]["scorer"],
+               "launches": launches, "seconds": seconds}
+        if len(val) < 2 or len(hist) != len(val):
+            raise AssertionError(f"{len(val)} val evals ran, "
+                                 f"{len(hist)} in the history")
+        if not Path(ckpt).is_file() or summary["best_iter"] is None:
+            raise AssertionError(f"no best checkpoint at {ckpt}")
+        return res
+
+    def run(train_fn, cfg, module, name, **kw):
+        zero_roi_counts(roi)
+        t0 = time.perf_counter()
+        with EvalLog(module, name, roi) as log:
+            summary = train_fn(cfg, device=dev, max_iter_override=EVAL_STEPS,
+                               eval_every_override=EVAL_EVERY,
+                               synthetic_learnable=True, verbose=False, **kw)
+        torch.cuda.synchronize()
+        return summary, summarise(summary, log, roi_counts(roi),
+                                  time.perf_counter() - t0)
+
+    out = {"card": card}
+    # 1. the GT captioner
+    cfg = paths(get_gt_config(), "transformer_gt").replace(
+        eval_batch_size=2, max_regions=RPN_ACCUM_REGIONS)
+    summary, res = run(dd.train_gt, cfg, dense_eval, "eval_split_gt",
+                       synthetic_images=EVAL_VG_IMAGES,
+                       synthetic_image_size=TRAIN_IMAGE)
+    t0 = time.perf_counter()
+    ev = dense_eval.eval_split_gt(summary["model"], summary["loader"],
+                                  split=2, batch_size=2,
+                                  max_regions=cfg.max_regions, use_beam=True,
+                                  return_records=True)
+    res["test_beam_eval"] = {"seconds": time.perf_counter() - t0,
+                             "ap_results": ev["ap_results"],
+                             "rescored_on_host": rescored(ev["records"], ev,
+                                                          dense=True)}
+    out["gt"] = res
+    Path(summary["save_path"]).unlink()
+    del summary
+    torch.cuda.empty_cache()
+    print(f"trainer eval, GT transformer head: {json.dumps(res)}",
+          flush=True)
+
+    # 2. the RPN model
+    cfg = paths(get_densecap_config(), "rpn").replace(
+        max_regions=RPN_ACCUM_REGIONS)
+    summary, res = run(dd.train_rpn, cfg, dd, "eval_split_rpn",
+                       synthetic_images=EVAL_VG_IMAGES,
+                       synthetic_image_size=TRAIN_IMAGE)
+    t0 = time.perf_counter()
+    ev = dd.eval_split_rpn(summary["model"], summary["loader"], split=2,
+                           max_regions=cfg.max_regions,
+                           max_images=EVAL_SPLIT_IMAGES, return_records=True)
+    res["test_eval"] = {"seconds": time.perf_counter() - t0,
+                        "num_images": ev["num_images"],
+                        "ap_results": {k: v for k, v in
+                                       ev["ap_results"].items()
+                                       if "breakdown" not in k},
+                        "rescored_on_host": rescored(ev["records"], ev,
+                                                     dense=True)}
+    out["rpn"] = res
+    Path(summary["save_path"]).unlink()
+    del summary
+    torch.cuda.empty_cache()
+    print(f"trainer eval, RPN: {json.dumps(res)}", flush=True)
+
+    # 3. the AlexCap LSTM captioner; an epoch is EVAL_EVERY steps
+    cfg = paths(get_lstm_config(), "LSTM")
+    cfg = cfg.replace(
+        save_checkpoint_every=EVAL_EVERY * cfg.batch_size,
+        num_epochs=EVAL_STEPS // EVAL_EVERY, eval_val_batch_size=6)
+    summary, res = run(driver.train, cfg, driver, "eval_split",
+                       synthetic_images=EVAL_FACE_IMAGES)
+    t0 = time.perf_counter()
+    ev = eval_split.eval_split(
+        summary["model"], summary["loader"], split=2, batch_size=6,
+        preprocess=partial(resnet_v2_preprocess,
+                           dtype=DTYPES[cfg.compute_dtype]),
+        use_beam=True, return_records=True)
+    res["test_beam_eval"] = {"seconds": time.perf_counter() - t0,
+                             "ap_results": ev["ap_results"],
+                             "rescored_on_host": rescored(ev["records"], ev,
+                                                          dense=False)}
+    out["alexcap"] = res
+    Path(summary["save_path"]).unlink()
+    del summary
+    torch.cuda.empty_cache()
+    print(f"trainer eval, AlexCap LSTM: {json.dumps(res)}", flush=True)
+
+    want = {"gt": ("roi_align_batch_chw", "roi_align_bwd_features"),
+            "rpn": ("roi_align_batch_chw", "roi_align_bwd_features",
+                    "roi_align_bwd_boxes"), "alexcap": ()}
+    for kind, kernels in want.items():
+        launches = out[kind]["launches"]
+        if any(launches[k] == 0 for k in kernels) or \
+                (not kernels and any(launches.values())):
+            raise AssertionError(f"{kind} trainer: ROI launches {launches}")
+    out["scorer_provenance"] = scorer.scorer_provenance()
+    return out
+
+
+# --------------------------------- phase 25: evidence_run on the card
+
+EVIDENCE_ARGS = ("--epochs", "2", "--images", "24")
+
+
+def evidence_runs(dev, roi, out_dir: Path, card=""):
+    """Phase 25: `python -m imagecaptioning_tpu_torch.evidence_run` for
+    `gt` and `rpn` on the card at its own settings (CPU-sized trunks,
+    fp32) with EVIDENCE_ARGS, through its `main`: the artifacts and the
+    summary's schema (`final_test.ap_results.map`, `history`,
+    `truncated`, the scorer), the ROI launches of each run (counts zeroed
+    before it: K1 and A for gt, K1, A and B for rpn), `densecap_draw` of
+    the RPN's best model's test detections (PIL); whether matplotlib
+    imports, and where it does, `--model lstm_attention` (batch 3) with
+    its attention overlay."""
+    from imagecaptioning_tpu_torch import evidence_run
+    from imagecaptioning_tpu_torch.data.vg_loader import normalize_images
+    from imagecaptioning_tpu_torch.utils.visualize import densecap_draw
+
+    base = out_dir / "evidence"
+    out = {"card": card, "args": " ".join(EVIDENCE_ARGS),
+           "matplotlib": importable("matplotlib")}
+    want = {"gt": ("roi_align_batch_chw", "roi_align_bwd_features"),
+            "rpn": ("roi_align_batch_chw", "roi_align_bwd_features",
+                    "roi_align_bwd_boxes")}
+    for kind, bs in (("gt", 4), ("rpn", 2)):
+        zero_roi_counts(roi)
+        t0 = time.perf_counter()
+        summary = evidence_run.main(["--model", kind, *EVIDENCE_ARGS,
+                                     "--out", str(base),
+                                     "--device", str(dev)])
+        torch.cuda.synchronize()
+        launches = roi_counts(roi)
+        seconds = time.perf_counter() - t0
+        tag = f"{kind}_learnable_bs{bs}"
+        with open(base / f"summary_{tag}.json") as f:
+            saved = json.load(f)
+        final = saved["final_test"]
+        ap = final["ap_results"]
+        res = {"seconds": seconds, "launches": launches,
+               "final_test_map": ap["map"], "final_test_meteor":
+                   ap["meteor"], "scorer": ap["scorer"],
+               "history": saved["history"], "truncated": saved["truncated"],
+               "best_val_score": saved["best_val_score"],
+               "best_iter": saved["best_iter"],
+               "records": len(final["records"]),
+               "artifacts": sorted(p.name for p in base.iterdir())}
+        names = [f"summary_{tag}.json"] + [
+            f"{h}_{tag.replace('gt_', 'gt_finetuned_')}.json"
+            for h in ("loss_history", "results_history")]
+        if out["matplotlib"] is True:
+            names.append(f"{tag}.png" if kind == "gt"
+                         else f"{tag}_breakdown.png")
+        res["missing_artifacts"] = [n for n in names
+                                    if not (base / n).is_file()]
+        if (any(launches[k] == 0 for k in want[kind])
+                or res["missing_artifacts"]
+                or not np.isfinite(ap["map"]) or saved["truncated"]
+                or saved["history"]["evals"] < 1 or not final["records"]
+                or "wordnet_available" not in ap["scorer"]):
+            raise AssertionError(f"evidence_run --model {kind}: {res}")
+        if kind == "rpn":
+            model, loader = summary["model"], summary["loader"]
+            batch = next(loader.padded_batches(2, 1, 4))
+            x = normalize_images(torch.from_numpy(batch["image"]).to(dev))
+            with torch.inference_mode():
+                boxes, scores, codes, keep = model.forward_test(x)
+                toks = model.generate_captions(codes,
+                                               loader.getSeqLength() + 1)
+            k = keep[0].cpu().numpy()
+            b = boxes[0].cpu().numpy()[k][:10]
+            caps = loader.vocab.decode_sequence(toks.cpu().numpy()[k][:10])
+            png = base / f"densecap_{tag}.png"
+            drawn = densecap_draw(batch["image"][0], b, caps, str(png))
+            changed = int((drawn != batch["image"][0]).any(-1).sum())
+            res["densecap_draw"] = {"boxes": len(b), "png": str(png),
+                                    "pixels_changed": changed}
+            if drawn.shape != batch["image"][0].shape or not png.is_file() \
+                    or (len(b) and not changed):
+                raise AssertionError(f"densecap_draw: {res}")
+        out[kind] = res
+        del summary
+        torch.cuda.empty_cache()
+        print(f"evidence_run --model {kind}: {json.dumps(res)}", flush=True)
+    if out["matplotlib"] is True:
+        zero_roi_counts(roi)
+        t0 = time.perf_counter()
+        evidence_run.main(["--model", "lstm_attention", *EVIDENCE_ARGS,
+                           "--batch-size", "3", "--out", str(base),
+                           "--device", str(dev)])
+        vis = sorted(p.name for p in base.glob(
+            "vis_lstm_attention_learnable_bs3_attention*.jpg"))
+        res = {"seconds": time.perf_counter() - t0,
+               "launches": roi_counts(roi), "attention_overlays": vis}
+        if not vis or any(res["launches"].values()):
+            raise AssertionError(f"evidence_run --model lstm_attention: "
+                                 f"{res}")
+        out["alexcap_evidence"] = res
+    else:
+        out["alexcap_evidence"] = "not run: no matplotlib"
+    for p in base.glob("best_model_*"):
+        p.unlink()
+    print(f"evidence runs: matplotlib {out['matplotlib']}, AlexCap "
+          f"evidence {json.dumps(out['alexcap_evidence'])}", flush=True)
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out-dir", type=Path, default=Path("build/chip_smoke"),
@@ -2474,8 +2828,8 @@ def main() -> int:
     model = seeded(True)
     served, run_beam, run_greedy = serve(dev, model, api, normalize_images,
                                          roi, flush, card=smi)
-    add_cupti(slice_roi, slice_calls, 200, flush)
-    add_cupti(canvas_roi, canvas_calls, 200, flush)
+    add_cupti(slice_roi, slice_calls, CUPTI_CALLS, flush)
+    add_cupti(canvas_roi, canvas_calls, CUPTI_CALLS, flush)
     prof = profile(run_beam, run_greedy, args.out_dir, card=smi,
                    served=served)
     ref = reference_check(dev, model, build, api, card=smi)
@@ -2503,8 +2857,8 @@ def main() -> int:
         TRAIN_IMAGE, 200, flush)
     serve_bwd, serve_bwd_calls = check_roi_backward(
         dev, roi, N_IMAGES, N_REGIONS, IMAGE // 32, 512, IMAGE, 200, flush)
-    add_cupti(train_bwd, train_bwd_calls, 200, flush)
-    add_cupti(serve_bwd, serve_bwd_calls, 200, flush)
+    add_cupti(train_bwd, train_bwd_calls, CUPTI_CALLS, flush)
+    add_cupti(serve_bwd, serve_bwd_calls, CUPTI_CALLS, flush)
     # outputs beyond the staged kernels' 32 a side and 256 cells: the
     # general kernels, at the GT training shape
     general_bwd = {}
@@ -2601,6 +2955,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("23 AlexCap LSTM, grad_accum_steps 2")
 
+    # phase 24: the trainers' own evals; phase 25: evidence_run
+    evals = trainer_evals(dev, roi, args.out_dir, card=smi)
+    lap("24 trainers' evals")
+    evidence = evidence_runs(dev, roi, args.out_dir, card=smi)
+    lap("25 evidence_run")
+    eval_paths = {
+        "gt_trainer_with_evals": evals["gt"]["launches"],
+        "gt_trainer_evals": {n: sum(e["roi_launches"][n]
+                                    for e in evals["gt"]["evals"])
+                             for n in ROI_WRAPPERS},
+        "rpn_trainer_with_evals": evals["rpn"]["launches"],
+        "rpn_trainer_evals": {n: sum(e["roi_launches"][n]
+                                     for e in evals["rpn"]["evals"])
+                              for n in ROI_WRAPPERS},
+        "evidence_gt": evidence["gt"]["launches"],
+        "evidence_rpn": evidence["rpn"]["launches"]}
+    alexcap_paths["alexcap_trainer_with_evals"] = evals["alexcap"]["launches"]
+    if isinstance(evidence["alexcap_evidence"], dict):
+        alexcap_paths["evidence_lstm_attention"] = evidence[
+            "alexcap_evidence"]["launches"]
+    # the evals' launches are inside the trainers' runs
+    new_paths = {k: v for k, v in eval_paths.items()
+                 if not k.endswith("_evals")}
+
     # the serving path's kernel: the fused entry, bf16 map → bf16 codes
     main_case = slice_roi["roi_align_batch_chw bf16->bf16 CHW"]
     # launches over every path that runs the kernel: both GT heads'
@@ -2618,7 +2996,8 @@ def main() -> int:
         "launches": sum(v["roi_align_batch_chw"]
                         for path in (serving, training)
                         for v in path.values())
-        + sum(v["roi_align_batch_chw"] for v in rpn_paths.values()),
+        + sum(v["roi_align_batch_chw"] for v in rpn_paths.values())
+        + sum(v["roi_align_batch_chw"] for v in new_paths.values()),
         # the entry's checks here and on both heads' served trunk output
         "max_abs_err": max(
             main_case["max_abs_err"],
@@ -2638,6 +3017,8 @@ def main() -> int:
         "launches_by_path": {"serving": serving, "training": training,
                              **rpn_paths,
                              **{k: v["roi_align_batch_chw"]
+                                for k, v in eval_paths.items()},
+                             **{k: v["roi_align_batch_chw"]
                                 for k, v in alexcap_paths.items()}},
         "launches_per_applied_update_k2": rpn_accum[
             "launches_per_applied_update"]["roi_align_batch_chw"],
@@ -2656,7 +3037,8 @@ def main() -> int:
             "source": "imagecaptioning_tpu_torch/csrc/roi_align_bwd.cu",
             "replaces": "imagecaptioning_tpu/ops/roi_align.py:234-242",
             "launches": sum(v[name] for v in training.values())
-            + rpn_trained["launches"][name] + rpn_accum["launches"][name],
+            + rpn_trained["launches"][name] + rpn_accum["launches"][name]
+            + sum(v[name] for v in new_paths.values()),
             "launches_by_path": {"training": {k: v[name] for k, v in
                                               training.items()},
                                  "rpn_training": rpn_trained["launches"][
@@ -2664,12 +3046,15 @@ def main() -> int:
                                  "rpn_training_k2": rpn_accum["launches"][
                                      name],
                                  **{k: v[name]
+                                    for k, v in eval_paths.items()},
+                                 **{k: v[name]
                                     for k, v in alexcap_paths.items()}},
             "main_path": ("GT training with either head and RPN training, "
                           "once a step" if name == "roi_align_bwd_features"
                           else "RPN training, once a step (the sampled "
                           "proposals' gradient; GT boxes are data)")
-            + "; k per applied update at grad_accum_steps k",
+            + "; k per applied update at grad_accum_steps k; in the "
+              "trainers with their evals and evidence_run",
             "launches_per_applied_update_k2": rpn_accum[
                 "launches_per_applied_update"][name],
             "max_abs_err": max(rpn_roi[name]["max_abs_err"],
@@ -2711,6 +3096,7 @@ def main() -> int:
                            "training": alex_trained,
                            "train_step_check": alex_step, **families},
                "grad_accum_k2": {"rpn": rpn_accum, "alexcap": alex_accum},
+               "trainer_evals": evals, "evidence_run": evidence,
                "seconds": time.perf_counter() - t_start,
                "phase_seconds": laps}
     print(f"summary: {json.dumps(summary)}")

@@ -3,7 +3,8 @@
 The JAX package beside it stays the reference: every module here keeps
 its counterpart's path and names, and the tests hold each one against
 it on the same inputs. This package imports `torch`, `numpy` and
-(lazily) `PIL`, and nothing of JAX or of the JAX package.
+(lazily) `PIL` and `matplotlib`, and nothing of JAX or of the JAX
+package.
 
 Ported so far: the ground-truth-box dense captioner with both caption
 heads (the transformer head of the reference's default GT config, and
@@ -16,7 +17,8 @@ and training (the ROI backward as hand-written CUDA kernels, driven by
 attention-LSTM and Transformer captioners on ResNet-101 and the ViT-B/16
 captioner (``train_LSTM``, ``train_LSTMwAttention``,
 ``train_Transformer``, ``train_ViTB``; ``infer --model-type
-lstm|lstm_attention|transformer|vitb``).
+lstm|lstm_attention|transformer|vitb``); and the evidence runs
+(``python -m imagecaptioning_tpu_torch.evidence_run``).
 
 Layout
 ------
@@ -36,10 +38,12 @@ Layout
 - ``train``     the dense drivers and the AlexCap driver (optimizers,
                 train steps, CLI)
 - ``eval``      the dense mAP/METEOR evaluators, the AlexCap scorer
-                (METEOR, BLEU, BLEU-4, CIDEr-D) and their eval loops
+                (METEOR, BLEU, BLEU-4, CIDEr-D over copies of nltk's
+                Porter stemmer, METEOR and BLEU) and their eval loops
 - ``utils``     device resolution, weights and training state carried
-                over from the JAX tree, pretrained-encoder init,
-                checkpoints, JSON histories
+                over from the JAX tree (and a ViT encoder back to
+                it), pretrained-encoder init, checkpoints, JSON
+                histories, curves and attention overlays
 """
 
 __version__ = "0.1.0"

@@ -21,13 +21,13 @@ model's loop, `eval_split_rpn`, is in `train/dense_driver.py`).
   prediction i (region order) by IoU argmax with a one-use flag, AP over
   min_score only (101-point interpolated), plus mean METEOR.
 - `eval_split_gt`: the `eval_gt.eval_split` loop (`eval_gt.py:170-236`):
-  per batch, the eval-mode loss and greedy captions of every region; per
-  image, `addResult(gt_boxes, captions, gt_captions)`. (The JAX loop's
-  beam, image-budget and records options have no caller here.)
+  per batch, the eval-mode loss and the captions of every region (greedy,
+  or the best beam); per image, `addResult(gt_boxes, captions,
+  gt_captions)`; an image budget and the records, as the JAX loop.
 
-METEOR uses NLTK's word_tokenize when its data is available, else
-whitespace tokens (`eval_utils.py:245-257`); `nltk` is imported only
-when scoring.
+METEOR (`eval/scorer.py`, the port's copy of nltk's) takes nltk's
+`word_tokenize` tokens where nltk and its punkt data load, else
+whitespace tokens (`eval_utils.py:245-257`), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -117,14 +117,28 @@ def eval_box_recalls(boxes_xcycwh: np.ndarray, gt_xcycwh: np.ndarray,
     return stats
 
 
+_TOKENIZER: Dict = {}
+
+
+def _tokenizer():
+    """nltk's `word_tokenize` where nltk and its punkt data load, else
+    whitespace split (`eval_utils.py:245-257`); looked up once."""
+    if not _TOKENIZER:
+        fn = str.split
+        try:
+            from nltk import word_tokenize
+            word_tokenize("a b")
+            fn = word_tokenize
+        except (ImportError, LookupError):
+            pass
+        _TOKENIZER["fn"] = fn
+    return _TOKENIZER["fn"]
+
+
 def _meteor(references: Sequence[str], candidate: str) -> float:
-    try:
-        from nltk import word_tokenize
-        refs = [word_tokenize(r) for r in references]
-        cand = word_tokenize(candidate)
-    except LookupError:            # punkt data unavailable offline
-        refs = [r.split() for r in references]
-        cand = candidate.split()
+    tokenize = _tokenizer()
+    refs = [tokenize(r) for r in references]
+    cand = tokenize(candidate)
     if not refs or not cand:
         return 0.0
     try:
@@ -295,23 +309,33 @@ class GTDenseCaptioningEvaluator:
 
 
 def eval_split_gt(model, loader, *, split: int = 1, batch_size: int = 2,
-                  max_regions: Optional[int] = None) -> Dict:
+                  max_regions: Optional[int] = None, max_images: int = -1,
+                  use_beam: bool = False, beam_size: int = 3,
+                  return_records: bool = False) -> Dict:
     """The `eval_gt.eval_split` loop over the port's `GTDenseCaptioner`
-    (on its own device): per batch the eval-mode loss and one greedy
-    caption per padded region; per image, the evaluator over its real
-    regions.
+    (on its own device): per batch the eval-mode loss and one caption per
+    padded region, greedy or the best of `beam_size` log-prob beams
+    (`use_beam`), pulled to the host in one copy; per image, the
+    evaluator over its real regions. `max_images` > 0 stops before the
+    first batch once that many images are scored.
 
     Returns {'loss_results': mean_loss, 'ap_results': {'map',
-    'ap_breakdown', 'meteor', 'scorer'}, 'num_images': n}."""
+    'ap_breakdown', 'meteor', 'scorer'}, 'num_images': n} and, with
+    `return_records`, 'records': each region's caption beside its merged
+    GT references."""
     from imagecaptioning_tpu_torch.data.vg_loader import normalize_images
     from imagecaptioning_tpu_torch.models import api
 
     dev = next(model.parameters()).device
-    decode = api.make_region_greedy_fn(model, loader.getSeqLength() + 1)
+    steps = loader.getSeqLength() + 1
+    decode = (api.make_region_beam_fn(model, steps, beam_size) if use_beam
+              else api.make_region_greedy_fn(model, steps))
     evaluator = GTDenseCaptioningEvaluator()
     losses: List[float] = []
     seen = 0
     for batch in loader.padded_batches(split, batch_size, max_regions):
+        if 0 < max_images <= seen:
+            break
         images = normalize_images(torch.from_numpy(batch["image"]).to(dev))
         boxes = torch.from_numpy(batch["boxes"]).to(dev)
         labels = torch.from_numpy(batch["labels"]).to(dev).long()
@@ -319,8 +343,10 @@ def eval_split_gt(model, loader, *, split: int = 1, batch_size: int = 2,
         with torch.no_grad():
             out = model(images, boxes, labels)
             losses.append(float(model.loss(out, labels, mask)))
+        res = decode(images, boxes)
+        toks = res.tokens[:, 0] if use_beam else res
         n, r = batch["box_mask"].shape
-        toks = decode(images, boxes).cpu().numpy().reshape(n, r, -1)
+        toks = toks.cpu().numpy().reshape(n, r, -1)
         for i in range(n):
             m = batch["box_mask"][i] > 0
             evaluator.addResult(batch["boxes"][i][m],
@@ -328,8 +354,13 @@ def eval_split_gt(model, loader, *, split: int = 1, batch_size: int = 2,
                                 loader.vocab.decode_sequence(
                                     batch["labels"][i][m]))
             seen += 1
-    return {
+    out = {
         "loss_results": float(np.mean(losses)) if losses else None,
         "ap_results": evaluator.evaluate(),
         "num_images": seen,
     }
+    if return_records:
+        out["records"] = [{"candidate": r["candidate"],
+                           "references": r["references"]}
+                          for r in evaluator.records]
+    return out

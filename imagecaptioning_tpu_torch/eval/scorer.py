@@ -1,65 +1,74 @@
-"""Caption scoring — copy of `imagecaptioning_tpu/eval/scorer.py`.
+"""Caption scoring — copy of `imagecaptioning_tpu/eval/scorer.py`, over
+the port's own METEOR and BLEU (`eval/meteor.py`, `eval/bleu.py`,
+`eval/porter.py`: nltk 3.10.0's algorithms, to the last bit).
 
-- `meteor_pair` and `scorer_provenance`: NLTK's sentence METEOR, the
+- `meteor_pair` and `scorer_provenance`: sentence METEOR, the
   reference's protocol, for the dense evaluators and the AlexCap one.
+  Its synonym stage reads `nltk.corpus.wordnet` where nltk and that
+  corpus import, else it finds nothing (`EmptyWordnet`), as the JAX
+  package does on a host without the corpus; a host without nltk at all
+  counts as one without the corpus.
 - `score_captions` and `CaptioningEvaluator`: the AlexCap protocol
   (`AlexCap/eval/eval_resnet.py:108-123`): per (candidate, references)
   pair, `meteor_score` and `sentence_bleu(smoothing_function=method4)`,
   averaged over the records (an empty candidate scores 0), beside the
   corpus BLEU-4 (method1 smoothing) and CIDEr-D of the JAX package. The
   pairs are scored in a thread pool.
-
-`nltk` is imported only when a score is asked for.
 """
 
 from __future__ import annotations
 
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Sequence
 
-_PROVENANCE_CACHE: Dict = {}
+from imagecaptioning_tpu_torch.eval.bleu import (SmoothingFunction,
+                                                 corpus_bleu, sentence_bleu)
+from imagecaptioning_tpu_torch.eval.cider import CiderD
+from imagecaptioning_tpu_torch.eval.meteor import EmptyWordnet, meteor_score
+
+_HOST: Dict = {}
 
 
-class _EmptyWordnet:
-    """Wordnet stand-in when the NLTK corpus is unavailable offline:
-    METEOR still aligns via its exact and Porter-stem stages, only the
-    synonym stage finds nothing."""
-
-    def synsets(self, word):
-        return []
+def _host() -> Dict:
+    """nltk's version (None without nltk) and its wordnet corpus where it
+    loads, else an `EmptyWordnet`; looked up once."""
+    if not _HOST:
+        try:
+            import nltk
+            version = nltk.__version__
+        except ImportError:
+            version = None
+        wordnet = EmptyWordnet()
+        if version is not None:
+            try:
+                from nltk.corpus import wordnet as corpus
+                corpus.synsets("dog")
+                wordnet = corpus
+            except LookupError:
+                pass
+        _HOST.update(nltk=version, wordnet=wordnet)
+    return _HOST
 
 
 def scorer_provenance() -> Dict:
-    """Which METEOR path this host runs: with the wordnet corpus, or the
-    `_EmptyWordnet` degradation. Stamped into every eval result, since
+    """Which METEOR path this host runs: with the wordnet corpus, or
+    without its synonym stage. Stamped into every eval result, since
     scores without wordnet run a touch lower and must not be compared
     with scores with it."""
-    if not _PROVENANCE_CACHE:
-        import nltk
-        try:
-            from nltk.corpus import wordnet
-            wordnet.synsets("dog")
-            available = True
-        except LookupError:
-            available = False
-        _PROVENANCE_CACHE.update({"wordnet_available": available,
-                                  "nltk": nltk.__version__})
-    return dict(_PROVENANCE_CACHE)
+    host = _host()
+    return {"wordnet_available": not isinstance(host["wordnet"],
+                                                EmptyWordnet),
+            "nltk": host["nltk"]}
 
 
 def meteor_pair(references_tok, candidate_tok) -> float:
-    from nltk.translate.meteor_score import meteor_score
-    try:
-        return float(meteor_score(references_tok, candidate_tok))
-    except LookupError:      # no wordnet corpus on this host
-        return float(meteor_score(references_tok, candidate_tok,
-                                  wordnet=_EmptyWordnet()))
+    return float(meteor_score(references_tok, candidate_tok,
+                              wordnet=_host()["wordnet"]))
 
 
 def _score_pair(candidate: str, references: Sequence[str]):
-    from nltk.translate.bleu_score import SmoothingFunction, sentence_bleu
-
     cand_tok = candidate.split()
     refs_tok = [r.split() for r in references]
     if not cand_tok or not any(refs_tok):
@@ -71,15 +80,9 @@ def _score_pair(candidate: str, references: Sequence[str]):
 
 
 def _corpus_scores(records: Sequence[Dict]) -> Dict:
-    """Corpus BLEU-4 (NLTK `corpus_bleu`, method1 smoothing) and CIDEr-D.
-    Records with an empty candidate count (scored 0, as pycocoevalcap
-    does); records with no non-empty reference are dropped."""
-    import warnings
-
-    from nltk.translate.bleu_score import SmoothingFunction, corpus_bleu
-
-    from imagecaptioning_tpu_torch.eval.cider import CiderD
-
+    """Corpus BLEU-4 (method1 smoothing) and CIDEr-D. Records with an
+    empty candidate count (scored 0, as pycocoevalcap does); records with
+    no non-empty reference are dropped."""
     cands = [r["candidate"].split() for r in records]
     refs = [[x.split() for x in r["references"]] for r in records]
     pairs = [(c, [r for r in rs if r]) for c, rs in zip(cands, refs)
@@ -87,7 +90,6 @@ def _corpus_scores(records: Sequence[Dict]) -> Dict:
     if not pairs or not any(c for c, _ in pairs):
         return {"bleu4": 0.0, "cider": 0.0}
     with warnings.catch_warnings():
-        # nltk warns per empty or low-overlap hypothesis
         warnings.simplefilter("ignore")
         bleu4 = float(corpus_bleu(
             [rs for _, rs in pairs], [c for c, _ in pairs],
@@ -105,6 +107,7 @@ def score_captions(records: Sequence[Dict], num_workers: int = 8) -> Dict:
     if not records:
         return {"meteor": 0.0, "bleu": 0.0, "bleu4": 0.0, "cider": 0.0,
                 "scorer": scorer_provenance()}
+    _host()                     # once, before the threads
     with ThreadPoolExecutor(max_workers=num_workers) as pool:
         scores = list(pool.map(
             lambda r: _score_pair(r["candidate"], r["references"]), records))

@@ -425,24 +425,24 @@ def train_gt(cfg: DenseConfig, *, device=None,
 
 # ------------------------------------------------------------- RPN path
 
-# detections scored at or below this are dropped before scoring (the JAX
-# eval's default, which no caller changes)
-RPN_EVAL_SCORE_THRESH = -10.0
-
-
 def eval_split_rpn(model: DenseCapRPN, loader, split: int = 1,
-                   max_regions: Optional[int] = None) -> Dict:
+                   max_regions: Optional[int] = None, max_images: int = -1,
+                   score_thresh: float = -10.0,
+                   return_records: bool = False) -> Dict:
     """The `DenseCap/eval/eval_utils.eval_split` protocol over the RPN
     model (on its own device), one image at a time: `forward_test`
     detections and greedy captions of seq_length + 1 steps, kept where
-    NMS keeps them and the score is above `RPN_EVAL_SCORE_THRESH`, scored
-    by the full DenseCap mAP; per image also the kept detections'
-    proposal recall (`eval_box_recalls` at 10, 50, 100 and all) and the
-    anchor assignment: each real GT's best anchor IoU and how many
-    proposals qualify as positive candidates (`candidate_masks`).
+    NMS keeps them and the score is above `score_thresh`, scored by the
+    full DenseCap mAP; per image also the kept detections' proposal
+    recall (`eval_box_recalls` at 10, 50, 100 and all) and the anchor
+    assignment: each real GT's best anchor IoU and how many proposals
+    qualify as positive candidates (`candidate_masks`). `max_images` > 0
+    stops once that many images are scored. An image's results come to
+    the host in one copy.
 
     Returns {'ap_results': {..., 'proposal_recall', 'anchor_assignment'},
-    'num_images': n}."""
+    'num_images': n} and, with `return_records`, 'records': each kept
+    detection's caption beside its matched GT references."""
     dev = next(model.parameters()).device
     steps = loader.getSeqLength() + 1
     evaluator = dense_eval.DenseCaptioningEvaluator()
@@ -451,6 +451,8 @@ def eval_split_rpn(model: DenseCapRPN, loader, split: int = 1,
     pos_candidates: list = []
     recall_acc: Dict[str, list] = {}
     for batch in loader.padded_batches(split, 1, max_regions):
+        if 0 < max_images <= seen:
+            break
         images = normalize_images(torch.from_numpy(batch["image"]).to(dev))
         gt_b = torch.from_numpy(batch["boxes"][0]).to(dev)
         gt_m = torch.from_numpy(batch["box_mask"][0]).to(dev)
@@ -462,13 +464,22 @@ def eval_split_rpn(model: DenseCapRPN, loader, split: int = 1,
             _, in_b = boxlib.clip_boxes(rpn.proposals[0], *images.shape[1:3])
             pos_mask, _, _ = candidate_masks(rpn.proposals[0], gt_b, gt_m,
                                              in_bounds=in_b)
-        b = boxes[0].cpu().numpy()
-        s = scores[0].cpu().numpy()
-        k = keep[0].cpu().numpy() & (s > RPN_EVAL_SCORE_THRESH)
-        toks = toks.cpu().numpy()
+            # one copy to the host: boxes, scores, keep, best IoUs and
+            # the positive count beside the tokens
+            flat = torch.cat([boxes[0].float(), scores[0].float()[:, None],
+                              keep[0].float()[:, None]], 1).reshape(-1)
+            host = torch.cat([flat, best_iou.float(),
+                              pos_mask.sum().float()[None],
+                              toks.float().reshape(-1)]).cpu().numpy()
+        d, g = boxes.shape[1], gt_b.shape[0]
+        packed, host = host[:d * 6].reshape(d, 6), host[d * 6:]
+        b, s = packed[:, :4], packed[:, 4]
+        k = (packed[:, 5] > 0) & (s > score_thresh)
+        best_iou, n_pos = host[:g], host[g]
+        toks = host[g + 1:].astype(np.int64).reshape(d, -1)
         m = batch["box_mask"][0] > 0
-        best_anchor_ious.extend(best_iou.cpu().numpy()[m])
-        pos_candidates.append(float(pos_mask.sum()))
+        best_anchor_ious.extend(best_iou[m])
+        pos_candidates.append(float(n_pos))
         if k.any():
             gt_caps = loader.vocab.decode_sequence(batch["labels"][0][m])
             evaluator.addResult(s[k], b[k],
@@ -501,6 +512,10 @@ def eval_split_rpn(model: DenseCapRPN, loader, split: int = 1,
             "pos_occupancy": round(float(
                 np.minimum(pc, model.num_pos).mean() / model.num_pos), 4),
         }
+    if return_records:
+        out["records"] = [{"candidate": r["candidate"],
+                           "references": r["references"]}
+                          for r in evaluator.records]
     return out
 
 

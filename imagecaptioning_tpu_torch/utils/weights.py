@@ -44,6 +44,9 @@
   reference state dict of any family (VitbModel's `proj.*`,
   `class_token` and `encoder.*` → `encoder_vit.conv_proj.*`, … as
   `convert_reference_captioner`, :506-597, renames them).
+- `vit_flat_variables`: the inverse of `vit_state_dict`, a ViT
+  encoder's tensors in the flat `.npz` layout `encoder_init` reads (the
+  JAX package's `flatten_tree` of its params).
 - `seeded_init_`: random weights from a seed, for serving or training
   without a trained checkpoint (a model's `ZERO_INIT` parameters stay
   zero; BatchNorm and LayerNorm weights 1 and biases 0, torch's init).
@@ -408,6 +411,42 @@ def vit_state_dict(params: Mapping, prefix: str = "encoder_vit"
         sd.update(_linear(lp["mlp_3"], f"{t}.mlp.3"))
         i += 1
     return sd
+
+
+def vit_flat_variables(encoder: nn.Module) -> Dict[str, np.ndarray]:
+    """The inverse of `vit_state_dict`: a `ViTEncoder`'s tensors as fp32
+    numpy arrays under the flat `/`-joined keys of the JAX layout
+    (`params/conv_proj/kernel`, `params/encoder_layer_0/self_attention/
+    query/kernel` (D, h, d), ...), the `.npz` that `encoder_init`
+    reads."""
+    def a(t: torch.Tensor) -> np.ndarray:
+        return t.detach().float().cpu().numpy()
+    out = {"params/conv_proj/kernel":
+           a(encoder.conv_proj.weight).transpose(2, 3, 1, 0),
+           "params/conv_proj/bias": a(encoder.conv_proj.bias),
+           "params/class_token": a(encoder.class_token),
+           "params/pos_embedding": a(encoder.encoder.pos_embedding),
+           "params/ln/scale": a(encoder.encoder.ln.weight),
+           "params/ln/bias": a(encoder.encoder.ln.bias)}
+    for name, block in encoder.encoder.layers.named_children():
+        p, attn = f"params/{name}", block.self_attention
+        w, b = a(attn.in_proj_weight), a(attn.in_proj_bias)
+        dim, heads = w.shape[1], attn.heads
+        for n, wn, bn in zip(("query", "key", "value"), np.split(w, 3),
+                             np.split(b, 3)):
+            out[f"{p}/self_attention/{n}/kernel"] = wn.T.reshape(
+                dim, heads, dim // heads)
+            out[f"{p}/self_attention/{n}/bias"] = bn.reshape(heads, -1)
+        out[f"{p}/self_attention/out/kernel"] = a(
+            attn.out_proj.weight).T.reshape(heads, dim // heads, dim)
+        out[f"{p}/self_attention/out/bias"] = a(attn.out_proj.bias)
+        for ln in ("ln_1", "ln_2"):
+            out[f"{p}/{ln}/scale"] = a(getattr(block, ln).weight)
+            out[f"{p}/{ln}/bias"] = a(getattr(block, ln).bias)
+        for i in (0, 3):
+            out[f"{p}/mlp_{i}/kernel"] = a(block.mlp[i].weight).T
+            out[f"{p}/mlp_{i}/bias"] = a(block.mlp[i].bias)
+    return {k: np.ascontiguousarray(v) for k, v in out.items()}
 
 
 def _captioner_family(params: Mapping) -> str:

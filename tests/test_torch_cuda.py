@@ -802,3 +802,35 @@ def test_tiny_family_train_step_on_card_matches_cpu(card, model_type):
     for name, want in s0.items():
         torch.testing.assert_close(s1[name], want, rtol=1e-8, atol=1e-10,
                                    msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_beam", [False, True])
+def test_tiny_eval_split_gt_on_card_matches_cpu(card, use_beam):
+    """`eval_split_gt` (greedy, or beam-3 with an image budget and records)
+    of a tiny fp32 GT model on the card against the CPU on the learnable
+    VG set: the same records, hence the same captions, and the same
+    scores."""
+    from imagecaptioning_tpu_torch.data import synthetic
+    from imagecaptioning_tpu_torch.data.vg_loader import VGDataLoader
+    from imagecaptioning_tpu_torch.eval import dense_eval
+
+    arrays, info = synthetic.make_learnable_vg_arrays(num_images=12,
+                                                      image_size=64)
+    loader = VGDataLoader(arrays=arrays, info=info)
+    kw = dict(vocab_size=loader.getVocabSize(),
+              seq_length=loader.getSeqLength(), embedding_size=16,
+              rnn_size=16, vgg_stages=2)
+    cpu = seeded_init_(GTDenseCaptioner(**kw).eval(), 0)
+    gpu = GTDenseCaptioner(**kw).eval().to(card)
+    gpu.load_state_dict(cpu.state_dict())
+    args = dict(split=0, batch_size=2, max_regions=4, max_images=4,
+                use_beam=use_beam, return_records=True)
+    want = dense_eval.eval_split_gt(cpu, loader, **args)
+    got = dense_eval.eval_split_gt(gpu, loader, **args)
+    assert got["num_images"] == want["num_images"] == 4
+    assert got["records"] == want["records"] and got["records"]
+    assert got["ap_results"]["map"] == want["ap_results"]["map"]
+    assert got["ap_results"]["meteor"] == want["ap_results"]["meteor"]
+    assert got["loss_results"] == pytest.approx(want["loss_results"],
+                                                rel=1e-4)
