@@ -6,7 +6,8 @@ DenseCap model's training and serving (phases 12–15), the four
 AlexCap families: the LSTM captioner on ResNet-101 (phases 16–18), the
 attention-LSTM (19), the Transformer (20) and ViT-B (21), gradient
 accumulation in the RPN (22) and AlexCap LSTM (23) trainers, the
-trainers' own periodic evals (24) and `evidence_run` (25).
+trainers' own periodic evals (24), `evidence_run` (25) and checkpoint
+interchange (26: `convert_checkpoint`, `encoder_init`, `infer`).
 
     python3 chip_smoke.py
 
@@ -206,11 +207,27 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (`--epochs 2 --images 24`, its CPU-sized trunks, fp32) on the card:
    the JAX script's artifact names, `summary_*.json` with
    `final_test.ap_results.map`, `history`, `truncated` and the scorer's
-   provenance, `densecap_draw` of the RPN's test detections (PIL); where
-   matplotlib imports, also `--model lstm_attention` (batch 3) and its
-   attention overlay, else `"alexcap_evidence": "not run: no
-   matplotlib"`.
-Every line of phases 4–25 carries the card's name and power limit. The
+   provenance, `densecap_draw` of the RPN's test detections (PIL); then
+   `--model lstm_attention` (batch 3): its summary (greedy and beam 1-5
+   test evals), no ROI launch, and its curves and attention overlay where
+   matplotlib imports (the card's machine has none: the run prints
+   "curves skipped" and writes its summary);
+26. checkpoint interchange at full width, weights from seeds: a reference
+   AlexGTModel `.pth` of the default GT config (with its duplicate
+   `net.*` registrations, dead encoder word embedding and full position
+   table) through `convert_checkpoint import-model` (port checkpoint and
+   `.npz`) and `export-model` from the `.npz`, each bitwise what
+   `load_gt_checkpoint` keeps of the source; `infer --model-type gt` from
+   the imported checkpoint on 2 images, tokens identical to the seeded
+   model's decode, K1 once an image; torchvision `vgg16`, `resnet101` and
+   `vit_b_16` files through `import --arch`, `encoder_init` into a GT
+   model, an AlexCap LSTM and a ViT-B captioner (every tensor the
+   source's) and `export --arch` (bitwise the source's covered keys);
+   one GT training step after `encoder_init` (K1 and kernel A once); a
+   reference LSTMModel `.pth` (ResNet-101) through `import-model` and
+   `infer --model-type lstm`, tokens identical. Preprocessing needs h5py
+   and does not run on the card: the line says whether h5py imports.
+Every line of phases 4–26 carries the card's name and power limit. The
 kernels line counts each kernel's launches over every path that runs it
 (`launches`, split in `launches_by_path`): the fused forward in both GT
 heads' serving and training and in RPN training (`rpn_training`, one a
@@ -224,13 +241,16 @@ the AlexCap paths launch none of them (`alexcap_serving`,
 the other three: 0); phase 24's trainers (`gt_trainer_with_evals`: K1 and
 A; `rpn_trainer_with_evals`: all three; `alexcap_trainer_with_evals`: 0)
 with their evals' share (`gt_trainer_evals`, `rpn_trainer_evals`: K1
-only), and phase 25's runs (`evidence_gt`, `evidence_rpn`).
+only), phase 25's runs (`evidence_gt`, `evidence_rpn`;
+`evidence_lstm_attention`: 0) and phase 26's (`interchange_gt_infer`:
+K1; `interchange_gt_step_after_encoder_init`: K1 and A;
+`interchange_lstm_infer`: 0).
 The last three lines: the card as nvidia-smi reports it, one JSON line of
 per-kernel numbers, and {"ok": true, "device": ...}. The profiler's full
 tables go to <out-dir>/chip_smoke_*_profile.txt, one for each profiled
 decode or step (`--out-dir`, default
 build/chip_smoke), where the checkpoints of phases 8, 11, 13, 17,
-19-21 and 24-25 are written and removed (phase 25's artifacts stay under
+19-21 and 24-26 are written and removed (phase 25's artifacts stay under
 `evidence/`).
 """
 
@@ -2659,8 +2679,11 @@ def evidence_runs(dev, roi, out_dir: Path, card=""):
     `truncated`, the scorer), the ROI launches of each run (counts zeroed
     before it: K1 and A for gt, K1, A and B for rpn), `densecap_draw` of
     the RPN's best model's test detections (PIL); whether matplotlib
-    imports, and where it does, `--model lstm_attention` (batch 3) with
-    its attention overlay."""
+    imports; `--model lstm_attention` (batch 3): its summary
+    (`final_test` greedy and beam 1-5, `history`, `truncated`), no ROI
+    launch, and its curves and attention overlay where matplotlib
+    imports (without it the run prints "curves skipped" and "attention
+    vis skipped" and writes its summary)."""
     from imagecaptioning_tpu_torch import evidence_run
     from imagecaptioning_tpu_torch.data.vg_loader import normalize_images
     from imagecaptioning_tpu_torch.utils.visualize import densecap_draw
@@ -2730,26 +2753,358 @@ def evidence_runs(dev, roi, out_dir: Path, card=""):
         del summary
         torch.cuda.empty_cache()
         print(f"evidence_run --model {kind}: {json.dumps(res)}", flush=True)
-    if out["matplotlib"] is True:
-        zero_roi_counts(roi)
-        t0 = time.perf_counter()
-        evidence_run.main(["--model", "lstm_attention", *EVIDENCE_ARGS,
-                           "--batch-size", "3", "--out", str(base),
-                           "--device", str(dev)])
-        vis = sorted(p.name for p in base.glob(
-            "vis_lstm_attention_learnable_bs3_attention*.jpg"))
-        res = {"seconds": time.perf_counter() - t0,
-               "launches": roi_counts(roi), "attention_overlays": vis}
-        if not vis or any(res["launches"].values()):
-            raise AssertionError(f"evidence_run --model lstm_attention: "
-                                 f"{res}")
-        out["alexcap_evidence"] = res
-    else:
-        out["alexcap_evidence"] = "not run: no matplotlib"
+    # the AlexCap branch (batch 3): its curves and attention overlay need
+    # matplotlib, so where it does not import they are skipped and only
+    # the summary is held
+    zero_roi_counts(roi)
+    t0 = time.perf_counter()
+    evidence_run.main(["--model", "lstm_attention", *EVIDENCE_ARGS,
+                       "--batch-size", "3", "--out", str(base),
+                       "--device", str(dev)])
+    torch.cuda.synchronize()
+    tag = "lstm_attention_learnable_bs3"
+    with open(base / f"summary_{tag}.json") as f:
+        saved = json.load(f)
+    final = saved["final_test"]
+    vis = sorted(p.name for p in base.glob(f"vis_{tag}*.jpg"))
+    res = {"seconds": time.perf_counter() - t0,
+           "launches": roi_counts(roi),
+           "best_val_meteor": saved["best_val_score"],
+           "best_iter": saved["best_iter"], "history": saved["history"],
+           "truncated": saved["truncated"],
+           "test_meteor": {k: v["ap_results"]["meteor"]
+                           for k, v in final.items()},
+           "test_images": final["greedy"]["num_images"],
+           "curves": (base / f"{tag}.png").is_file(),
+           "attention_overlays": vis}
+    if (any(res["launches"].values()) or saved["truncated"]
+            or saved["history"]["evals"] < 1 or not final["greedy"]["records"]
+            or set(final) != {"greedy", *(f"beam_{k}" for k in range(1, 6))}
+            or (out["matplotlib"] is True
+                and not (vis and res["curves"]))):
+        raise AssertionError(f"evidence_run --model lstm_attention: {res}")
+    out["alexcap_evidence"] = res
     for p in base.glob("best_model_*"):
         p.unlink()
     print(f"evidence runs: matplotlib {out['matplotlib']}, AlexCap "
           f"evidence {json.dumps(out['alexcap_evidence'])}", flush=True)
+    return out
+
+
+# ---------------------------- phase 26: checkpoint interchange on the card
+
+INTERCHANGE_IMAGES = 2        # images served from each imported checkpoint
+TORCHVISION_CLASSES = 1000    # the ImageNet heads the converters leave out
+
+
+def state_differs(got, want) -> list:
+    """The keys where two flat state dicts differ: missing on one side,
+    or another dtype, shape or bit (compared on `got`'s device). BatchNorm's
+    0-d step counter comes back from a `.pth` export as one element, as
+    both packages' `save_state_dict` write it, and is compared by value."""
+    bad = sorted(set(got) ^ set(want))
+    for k in sorted(set(got) & set(want)):
+        g, w = got[k], want[k]
+        if k.endswith("num_batches_tracked"):
+            g = g.reshape(w.shape)
+        if (g.dtype != w.dtype or g.shape != w.shape
+                or not torch.equal(g, w.to(g.device))):
+            bad.append(k)
+    return bad
+
+
+def randomize_batchnorm_(module, seed):
+    """BatchNorm's scales, shifts and running statistics drawn from a seed
+    (`seeded_init_` leaves them at 1, 0, 0 and 1), so that a converted
+    trunk has to carry every one of them."""
+    gen = torch.Generator(next(module.parameters()).device)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                for t in (m.weight, m.bias, m.running_mean, m.running_var):
+                    t.uniform_(0.5, 1.5, generator=gen)
+
+
+def checkpoint_interchange(dev, roi, out_dir: Path, card=""):
+    """Phase 26: `convert_checkpoint` and `infer` at full width, weights
+    from seeds in the reference's and torchvision's key layouts:
+    1. a reference AlexGTModel `.pth` of the default GT config (transformer
+       head, VGG16) with the duplicate `net.*` registrations, the encoder's
+       dead word embedding and full position table;
+    2. `import-model` (port checkpoint and `.npz`), then `export-model`
+       from the `.npz`: what `load_gt_checkpoint` keeps of the export and
+       of the import equals what it keeps of the source, bitwise;
+    3. `infer --model-type gt --ckpt <imported>` on INTERCHANGE_IMAGES
+       images: the seeded model's own serving decode, token for token, K1
+       once an image;
+    4. torchvision `vgg16`, `resnet101` and `vit_b_16` `.pth` files (their
+       ImageNet heads included), `import --arch` each, `encoder_init` into
+       a GT model, an AlexCap LSTM and a ViT-B captioner seeded otherwise:
+       every loaded tensor the source's; `export --arch` back, equal to
+       the source's covered keys;
+    5. one GT training step of the model after `encoder_init`: K1 and
+       kernel A once each;
+    6. a reference LSTMModel `.pth` (ResNet-101) → `import-model` → `infer
+       --model-type lstm`: the seeded model's decode, token for token.
+    Files go under `out_dir`/interchange and are deleted as the phase goes
+    (the GT files are 0.6 GB each). Whether h5py imports is printed:
+    preprocessing writes HDF5, so it does not run on a machine without
+    it."""
+    import contextlib
+    import io
+    import shutil
+
+    from PIL import Image
+
+    from imagecaptioning_tpu_torch import convert_checkpoint as cc
+    from imagecaptioning_tpu_torch import infer
+    from imagecaptioning_tpu_torch.config.dense_configs import get_gt_config
+    from imagecaptioning_tpu_torch.data.tokenizer import Vocab
+    from imagecaptioning_tpu_torch.data.vg_loader import VGDataLoader
+    from imagecaptioning_tpu_torch.models.captioners import build_model
+    from imagecaptioning_tpu_torch.train import dense_driver as dd
+    from imagecaptioning_tpu_torch.utils import weights
+    from imagecaptioning_tpu_torch.utils.pretrained import apply_encoder_init
+
+    work = out_dir / "interchange"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "photos").mkdir(parents=True)
+    f = {name: str(work / name) for name in (
+        "gt_reference.pth", "gt.ckpt", "gt.npz", "gt_exported.pth",
+        "vgg16.pth", "resnet101.pth", "vit_b_16.pth", "lstm_reference.pth",
+        "lstm.ckpt", "vg_dicts.json", "face_dicts.json")}
+    seconds, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[name] = now - t_lap[0]
+        t_lap[0] = now
+
+    def quiet(fn, *a, **k):                 # infer prints its whole result
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(*a, **k)
+
+    def dicts(n, path):
+        words = [f"w{i}" for i in range(n)]
+        info = {"token_to_idx": {w: i + 1 for i, w in enumerate(words)},
+                "idx_to_token": {str(i + 1): w for i, w in enumerate(words)}}
+        Path(path).write_text(json.dumps(info))
+        return Vocab.from_dicts_json(info)
+
+    def cpu(module, prefix=""):
+        return {prefix + k: v.detach().cpu()
+                for k, v in module.state_dict().items()}
+
+    def check(name, bad):
+        if bad:
+            raise AssertionError(f"interchange {name}: {len(bad)} tensors "
+                                 f"differ, e.g. {bad[:4]}")
+
+    rng = np.random.RandomState(SEED + 26)
+    for i in range(INTERCHANGE_IMAGES):
+        Image.fromarray(rng.randint(0, 256, (480, 640, 3), dtype=np.uint8)
+                        ).save(work / "photos" / f"p{i}.png")
+    photos = str(work / "photos")
+    vg_vocab, face_vocab = (dicts(VOCAB, f["vg_dicts.json"]),
+                            dicts(ALEX_VOCAB, f["face_dicts.json"]))
+    out = {"card": card, "h5py": importable("h5py"),
+           "preprocessing": "not run on the card: it writes HDF5 through "
+                            "h5py (the CPU tests hold it to JAX's)"}
+    print(f"interchange: h5py {out['h5py']}; preprocessing "
+          f"{out['preprocessing']}", flush=True)
+    lap("set-up")
+
+    # 1-2. a reference GT checkpoint, imported and exported again
+    gt_cfg = get_gt_config().replace(batch_size=TRAIN_BATCH,
+                                     max_regions=N_REGIONS)
+    gt_src = weights.seeded_init_(dd.build_gt_model(gt_cfg, VOCAB, SEQ, dev),
+                                  SEED + 26).eval()
+    sd = cpu(gt_src)
+    gen = torch.Generator().manual_seed(SEED + 26)
+    ref = dict(sd)
+    pos = torch.randn(sd["llm.decoder.position_embedding.weight"].shape,
+                      generator=gen)
+    pos[:1] = sd["llm.encoder.position_embedding.weight"]
+    ref["llm.encoder.position_embedding.weight"] = pos
+    ref["llm.encoder.word_embedding.weight"] = torch.randn(
+        sd["llm.decoder.word_embedding.weight"].shape, generator=gen)
+    for k, v in sd.items():                  # the same tensors, twice
+        if k.startswith("features."):
+            ref["net.vgg16_backbone." + k[len("features."):]] = v
+        elif k.startswith("classifier."):
+            ref["net.full_conv." + k[len("classifier."):]] = v
+    torch.save(ref, f["gt_reference.pth"])
+    out["gt_reference_gb"] = Path(f["gt_reference.pth"]).stat().st_size / 1e9
+    lap("1 reference GT .pth")
+    meta = cc.main(["import-model", "--src", f["gt_reference.pth"],
+                    "--dst", f["gt.ckpt"], "--npz", f["gt.npz"]])
+    lap("2 import-model GT")
+    cc.main(["export-model", "--src", f["gt.npz"],
+             "--dst", f["gt_exported.pth"]])
+    lap("2 export-model GT")
+    kept = weights.load_gt_checkpoint(f["gt_reference.pth"])
+    check("GT import-model", state_differs(
+        weights.load_gt_checkpoint(f["gt.ckpt"]), kept))
+    check("GT export-model", state_differs(
+        weights.load_gt_checkpoint(f["gt_exported.pth"]), kept))
+    out["gt_round_trip"] = {"meta": meta, "tensors": len(kept),
+                            "bitwise": True}
+    for name in ("gt_reference.pth", "gt.npz", "gt_exported.pth"):
+        Path(f[name]).unlink()
+    del kept, ref
+    lap("2 GT checks")
+
+    # 3. serving the imported checkpoint
+    zero_roi_counts(roi)
+    got = quiet(infer.main, ["--model-type", "gt", "--ckpt", f["gt.ckpt"],
+                             "--dicts", f["vg_dicts.json"],
+                             "--images", photos, "--device", str(dev)])
+    launches = roi_counts(roi)
+    served = infer.build_gt_model(gt_cfg, VOCAB, SEQ, dev)
+    served.load_state_dict(gt_src.state_dict())
+    want = infer.dense_captions(served, vg_vocab, photos, SEQ)
+    regions = sum(len(v["regions"]) for v in want.values())
+    out["gt_infer"] = {"images": len(got), "regions": regions,
+                       "captions_identical": got == want,
+                       "launches": launches}
+    if got != want or launches["roi_align_batch_chw"] != INTERCHANGE_IMAGES:
+        raise AssertionError(f"infer --model-type gt from the imported "
+                             f"checkpoint: {out['gt_infer']}")
+    Path(f["gt.ckpt"]).unlink()
+    del served
+    lap("3 infer GT")
+
+    # 4. torchvision backbones: import, encoder_init, export
+    lstm_cfg, vit_cfg = alexcap_cfg("lstm"), alexcap_cfg("vitb")
+    lstm_src = weights.seeded_init_(build_model(lstm_cfg, ALEX_VOCAB,
+                                                ALEX_SEQ, device=dev),
+                                    SEED + 26)
+    randomize_batchnorm_(lstm_src.features, SEED + 26)
+    vit_src = weights.seeded_init_(build_model(vit_cfg, ALEX_VOCAB, ALEX_SEQ,
+                                               device=dev), SEED + 26)
+    resnet_names = {"0": "conv1", "1": "bn1", "4": "layer1", "5": "layer2",
+                    "6": "layer3", "7": "layer4"}
+    tv = {"vgg16": {**{k: v for k, v in sd.items()
+                       if k.startswith(("features.", "classifier."))},
+                    "classifier.6.weight": torch.randn(
+                        TORCHVISION_CLASSES, 4096, generator=gen),
+                    "classifier.6.bias": torch.zeros(TORCHVISION_CLASSES)},
+          "resnet101": {"fc.weight": torch.randn(TORCHVISION_CLASSES, 2048,
+                                                 generator=gen),
+                        "fc.bias": torch.zeros(TORCHVISION_CLASSES)},
+          "vit_b_16": {**cpu(vit_src.encoder_vit),
+                       "heads.head.weight": torch.randn(
+                           TORCHVISION_CLASSES, 768, generator=gen),
+                       "heads.head.bias": torch.zeros(TORCHVISION_CLASSES)}}
+    for k, v in cpu(lstm_src.features).items():
+        head, _, tail = k.partition(".")
+        tv["resnet101"][f"{resnet_names[head]}.{tail}"] = v
+    for name, sd_ in tv.items():
+        torch.save(sd_, f[f"{name}.pth"])
+    lap("4 torchvision .pth files")
+    archs = {"vgg16_features": "vgg16", "vgg16_classifier": "vgg16",
+             "resnet101": "resnet101", "vit_b_16": "vit_b_16"}
+    npz = {a: str(work / f"{a}.npz") for a in archs}
+    for arch, src in archs.items():
+        cc.main(["import", "--arch", arch, "--src", f[f"{src}.pth"],
+                 "--dst", npz[arch]])
+    lap("4 import --arch")
+    gt_dst = weights.seeded_init_(dd.build_gt_model(gt_cfg, VOCAB, SEQ,
+                                                    dev), SEED + 27)
+    lstm_dst = weights.seeded_init_(build_model(lstm_cfg, ALEX_VOCAB,
+                                                ALEX_SEQ, device=dev),
+                                    SEED + 27)
+    vit_dst = weights.seeded_init_(build_model(vit_cfg, ALEX_VOCAB, ALEX_SEQ,
+                                               device=dev), SEED + 27)
+    apply_encoder_init(gt_dst, f"features={npz['vgg16_features']},"
+                               f"classifier={npz['vgg16_classifier']}",
+                       "features")
+    apply_encoder_init(lstm_dst, npz["resnet101"], "features")
+    apply_encoder_init(vit_dst, npz["vit_b_16"], "encoder_vit")
+    lap("4 encoder_init")
+    check("encoder_init GT", state_differs(
+        {**cpu(gt_dst.features, "features."),
+         **cpu(gt_dst.classifier, "classifier.")},
+        {k: v for k, v in tv["vgg16"].items()
+         if not k.startswith("classifier.6.")}))
+    check("encoder_init ResNet-101", state_differs(
+        cpu(lstm_dst.features), cpu(lstm_src.features)))
+    check("encoder_init ViT-B/16", state_differs(
+        cpu(vit_dst.encoder_vit), cpu(vit_src.encoder_vit)))
+    loaded = {"gt": len(gt_dst.features.state_dict())
+              + len(gt_dst.classifier.state_dict()),
+              "resnet101": len(lstm_dst.features.state_dict()),
+              "vit_b_16": len(vit_dst.encoder_vit.state_dict())}
+    del vit_dst, vit_src
+    # what each architecture leaves out of its source file
+    uncovered = {"vgg16_features": ("classifier.",),
+                 "vgg16_classifier": ("features.", "classifier.6."),
+                 "resnet101": ("fc.",), "vit_b_16": ("heads.",)}
+    exported = {}
+    for arch, src in archs.items():
+        back = str(work / f"{arch}_exported.pth")
+        cc.main(["export", "--arch", arch, "--src", npz[arch], "--dst", back])
+        got_sd = torch.load(back, weights_only=True)
+        check(f"export --arch {arch}", state_differs(
+            got_sd, {k: v for k, v in tv[src].items()
+                     if not k.startswith(uncovered[arch])}))
+        exported[arch] = len(got_sd)
+        Path(back).unlink()
+        Path(npz[arch]).unlink()
+    for name in tv:
+        Path(f[f"{name}.pth"]).unlink()
+    out["backbones"] = {"loaded_tensors": loaded, "exported_tensors":
+                        exported, "bitwise": True}
+    del tv, sd
+    lap("4 checks and export --arch")
+
+    # 5. a GT training step after encoder_init
+    arrays, info = make_train_data(np.random.RandomState(SEED + 2))
+    loader = VGDataLoader(arrays=arrays, info=info)
+    opt = dd.make_dense_optimizer(gt_cfg, gt_dst, len(loader.train_ix))
+    gen_dev = torch.Generator(dev)
+    gen_dev.manual_seed(SEED + 1)
+    step = dd.make_gt_train_step(gt_dst, opt, gt_cfg.use_curriculum_learning,
+                                 gen_dev)
+    batch = dd.to_device(next(loader.padded_batches(0, TRAIN_BATCH,
+                                                    N_REGIONS)), dev)
+    zero_roi_counts(roi)
+    loss = float(step(*batch, 1.0))
+    launches = roi_counts(roi)
+    out["gt_train_step"] = {"loss": loss, "launches": launches}
+    if (not np.isfinite(loss) or launches["roi_align_batch_chw"] != 1
+            or launches["roi_align_bwd_features"] != 1):
+        raise AssertionError(f"GT step after encoder_init: "
+                             f"{out['gt_train_step']}")
+    del gt_dst, opt, step, batch, gt_src
+    lap("5 GT step")
+
+    # 6. a reference LSTMModel checkpoint, imported and served
+    torch.save(cpu(lstm_src), f["lstm_reference.pth"])
+    lstm_meta = cc.main(["import-model", "--src", f["lstm_reference.pth"],
+                         "--dst", f["lstm.ckpt"]])
+    zero_roi_counts(roi)
+    got = quiet(infer.main, ["--model-type", "lstm", "--ckpt", f["lstm.ckpt"],
+                             "--dicts", f["face_dicts.json"],
+                             "--images", photos, "--device", str(dev)])
+    served = build_model(lstm_cfg.replace(param_dtype=lstm_cfg.compute_dtype),
+                         ALEX_VOCAB, ALEX_SEQ, device=dev).eval()
+    served.load_state_dict(lstm_src.state_dict())
+    want = infer.alexcap_captions(served, face_vocab, photos, ALEX_SEQ)
+    out["lstm_infer"] = {"meta": lstm_meta, "images": len(got),
+                         "captions_identical": got == want,
+                         "launches": roi_counts(roi)}
+    if got != want or any(out["lstm_infer"]["launches"].values()):
+        raise AssertionError(f"infer --model-type lstm from the imported "
+                             f"checkpoint: {out['lstm_infer']}")
+    del served, lstm_src, lstm_dst
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    lap("6 LSTM import-model and infer")
+    out["seconds"] = seconds
+    print(f"checkpoint interchange: {json.dumps(out)}", flush=True)
     return out
 
 
@@ -2960,6 +3315,9 @@ def main() -> int:
     lap("24 trainers' evals")
     evidence = evidence_runs(dev, roi, args.out_dir, card=smi)
     lap("25 evidence_run")
+    # phase 26: convert_checkpoint, encoder_init and infer
+    interchange = checkpoint_interchange(dev, roi, args.out_dir, card=smi)
+    lap("26 checkpoint interchange")
     eval_paths = {
         "gt_trainer_with_evals": evals["gt"]["launches"],
         "gt_trainer_evals": {n: sum(e["roi_launches"][n]
@@ -2970,11 +3328,15 @@ def main() -> int:
                                      for e in evals["rpn"]["evals"])
                               for n in ROI_WRAPPERS},
         "evidence_gt": evidence["gt"]["launches"],
-        "evidence_rpn": evidence["rpn"]["launches"]}
+        "evidence_rpn": evidence["rpn"]["launches"],
+        "interchange_gt_infer": interchange["gt_infer"]["launches"],
+        "interchange_gt_step_after_encoder_init": interchange[
+            "gt_train_step"]["launches"]}
     alexcap_paths["alexcap_trainer_with_evals"] = evals["alexcap"]["launches"]
-    if isinstance(evidence["alexcap_evidence"], dict):
-        alexcap_paths["evidence_lstm_attention"] = evidence[
-            "alexcap_evidence"]["launches"]
+    alexcap_paths["evidence_lstm_attention"] = evidence[
+        "alexcap_evidence"]["launches"]
+    alexcap_paths["interchange_lstm_infer"] = interchange["lstm_infer"][
+        "launches"]
     # the evals' launches are inside the trainers' runs
     new_paths = {k: v for k, v in eval_paths.items()
                  if not k.endswith("_evals")}
@@ -3054,7 +3416,8 @@ def main() -> int:
                           else "RPN training, once a step (the sampled "
                           "proposals' gradient; GT boxes are data)")
             + "; k per applied update at grad_accum_steps k; in the "
-              "trainers with their evals and evidence_run",
+              "trainers with their evals and evidence_run; in a GT step "
+              "after encoder_init from converted torchvision weights",
             "launches_per_applied_update_k2": rpn_accum[
                 "launches_per_applied_update"][name],
             "max_abs_err": max(rpn_roi[name]["max_abs_err"],
@@ -3097,6 +3460,7 @@ def main() -> int:
                            "train_step_check": alex_step, **families},
                "grad_accum_k2": {"rpn": rpn_accum, "alexcap": alex_accum},
                "trainer_evals": evals, "evidence_run": evidence,
+               "checkpoint_interchange": interchange,
                "seconds": time.perf_counter() - t_start,
                "phase_seconds": laps}
     print(f"summary: {json.dumps(summary)}")

@@ -41,16 +41,22 @@ def words_preprocess(phrase: str) -> List[str]:
 
 
 def build_vocab(token_lists: Iterable[Sequence[str]],
-                min_token_instances: int = 15) -> set:
+                min_token_instances: int = 15,
+                verbose: bool = False) -> set:
     """Min-count vocab filter; adds '<UNK>' iff any token was dropped
     (reference `my_model_preprocess.py:90-112`)."""
     counter: Counter = Counter()
+    n_lists = 0
     for tokens in token_lists:
         if tokens is not None:
             counter.update(tokens)
+            n_lists += 1
     vocab = {t for t, c in counter.items() if c >= min_token_instances}
     if len(vocab) < len(counter):
         vocab.add("<UNK>")
+    if verbose:
+        print(f"Keeping {len(vocab)} / {len(counter)} tokens "
+              f"from {n_lists} captions")
     return vocab
 
 

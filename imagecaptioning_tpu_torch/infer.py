@@ -27,10 +27,10 @@ caption head: the transformer head by default, the LSTM head with
       --ckpt gt_model.pth --dicts data/VG-regions-dicts.json \\
       --images photos/ [--beam 3] [--device cpu]
 
-`--ckpt` is a `torch.save`d state dict in the reference AlexGTModel key
-layout (what the JAX package's `export_reference_gt_model` +
-`save_state_dict` write). Each image is resized (shorter edge 700, longer
-at most 720), padded onto a fixed 720×720 canvas, and its region slab
+`--ckpt` is a port checkpoint (`traingt`'s, or what `convert_checkpoint
+import-model` writes from a reference AlexGTModel `.pth`) or a
+`torch.save`d state dict in the reference AlexGTModel key layout. Each
+image is resized (shorter edge 700, longer at most 720), padded onto a fixed 720×720 canvas, and its region slab
 padded to `--max-regions` with degenerate (1, 1, 1, 1) boxes, as the
 JAX CLI does. Runs on the first CUDA card unless `--device cpu`.
 """
@@ -91,15 +91,23 @@ def caption_alexcap(args) -> dict:
                         vocab.vocab_size, args.seq_length,
                         device=device).eval()
     model.load_state_dict(load_alexcap_checkpoint(args.ckpt))
-    paths, images_u8 = _load_images(args.images)
+    return alexcap_captions(model, vocab, args.images, args.seq_length,
+                            args.beam)
+
+
+def alexcap_captions(model, vocab: Vocab, image_dir: str, seq_length: int,
+                     beam: int = 1) -> dict:
+    """{file name: caption} for every image of `image_dir`, from a served
+    AlexCap model."""
+    paths, images_u8 = _load_images(image_dir)
     if not paths:
-        raise SystemExit(f"no images in {args.images}")
+        raise SystemExit(f"no images in {image_dir}")
+    device = next(model.parameters()).device
     x = resnet_v2_preprocess(torch.from_numpy(images_u8).to(device))
-    if args.beam > 1:
-        toks = api.make_beam_fn(model, args.seq_length + 1,
-                                args.beam)(x).tokens[:, 0]
+    if beam > 1:
+        toks = api.make_beam_fn(model, seq_length + 1, beam)(x).tokens[:, 0]
     else:
-        toks = api.make_greedy_fn(model, args.seq_length + 1)(x)
+        toks = api.make_greedy_fn(model, seq_length + 1)(x)
     captions = vocab.decode_sequence(toks.cpu().numpy())
     return {os.path.basename(p): c for p, c in zip(paths, captions)}
 
@@ -119,19 +127,29 @@ def caption_dense(args) -> dict:
     cfg = apply_overrides(get_gt_config(), args.set)
     model = build_gt_model(cfg, vocab.vocab_size, args.seq_length, device)
     model.load_state_dict(load_gt_checkpoint(args.ckpt))
-    if args.beam > 1:
-        beam = api.make_region_beam_fn(model, args.seq_length + 1, args.beam)
-        decode = lambda x, b: beam(x, b).tokens[:, 0]
+    return dense_captions(model, vocab, args.images, args.seq_length,
+                          args.beam, args.max_regions)
+
+
+def dense_captions(model: GTDenseCaptioner, vocab: Vocab, image_dir: str,
+                   seq_length: int, beam: int = 1,
+                   max_regions: int = 32) -> dict:
+    """{file name: its resize and its regions' boxes and captions} for
+    every image of `image_dir`, from a served GT model."""
+    device = next(model.parameters()).device
+    if beam > 1:
+        beam_fn = api.make_region_beam_fn(model, seq_length + 1, beam)
+        decode = lambda x, b: beam_fn(x, b).tokens[:, 0]
     else:
-        decode = api.make_region_greedy_fn(model, args.seq_length + 1)
+        decode = api.make_region_greedy_fn(model, seq_length + 1)
 
     paths = sorted(
-        os.path.join(args.images, f) for f in os.listdir(args.images)
+        os.path.join(image_dir, f) for f in os.listdir(image_dir)
         if f.lower().endswith((".jpg", ".jpeg", ".png")))
     if not paths:
-        raise SystemExit(f"no images in {args.images}")
+        raise SystemExit(f"no images in {image_dir}")
     proc = ImageProcessor()
-    rmax = args.max_regions
+    rmax = max_regions
     out = {}
     for path in paths:
         # (1, H, W, 3), (1, R, 4) resized-frame boxes, + resize scale

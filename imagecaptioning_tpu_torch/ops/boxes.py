@@ -1,18 +1,18 @@
-"""Box geometry — port of `imagecaptioning_tpu/ops/boxes.py:21-171`
+"""Box geometry — port of `imagecaptioning_tpu/ops/boxes.py`
 (reference `DenseCap/densecap/box_utils.py`, `ApplyBoxTransform.py`,
-`InvertBoxTransform.py`, `BoxIoU.py`, `MakeAnchors.py`).
+`InvertBoxTransform.py`, `BoxIoU.py`, `MakeAnchors.py`, `MakeBoxes.py`).
 
 Every function works on (..., 4) tensors with any leading batch
 dimensions and does the JAX package's elementwise operations in the same
 order, so fp32 results are the same bits. `xcycwh` is (x_center,
 y_center, w, h) in 1-indexed pixel coordinates, `x1y1x2y2` corners.
-(`make_boxes` and `merge_boxes_host` are on no path of the port.)
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -111,6 +111,23 @@ def apply_box_transform(anchors: torch.Tensor, trans: torch.Tensor,
                         ha * torch.exp(th)], dim=-1)
 
 
+def make_boxes(trans_maps: torch.Tensor, anchor_wh: torch.Tensor,
+               x0: float, y0: float, sx: float, sy: float):
+    """Anchors and deltas fused into proposal boxes, the legacy
+    `MakeBoxes` module (reference `MakeBoxes.py:26-66`; the live path
+    composes `make_anchors` and `apply_box_transform`, which this is).
+    trans_maps (N, 4k, H, W), anchor_wh (k, 2) → (boxes, anchors), each
+    (N, k·H·W, 4) xcycwh."""
+    n, c4k, hf, wf = trans_maps.shape
+    k = c4k // 4
+    t = trans_maps.reshape(n, k, 4, hf, wf)
+    anchors = make_anchors(anchor_wh, x0, y0, sx, sy, hf, wf)   # (k,H,W,4)
+    anchors = anchors[None].expand(n, k, hf, wf, 4)
+    boxes = apply_box_transform(anchors, t.movedim(2, -1))
+    return (boxes.reshape(n, k * hf * wf, 4),
+            anchors.reshape(n, k * hf * wf, 4))
+
+
 def invert_box_transform(anchors: torch.Tensor,
                          boxes: torch.Tensor) -> torch.Tensor:
     """Regression targets: the deltas that map anchors onto boxes
@@ -134,3 +151,26 @@ def field_centers(num_pools: int):
         x0, y0 = x0 + sx / 2, y0 + sy / 2
         sx, sy = sx * 2, sy * 2
     return x0, y0, sx, sy
+
+
+def merge_boxes_host(boxes, iou_thresh: float = 0.7):
+    """Greedy IoU clustering of the eval protocol (reference
+    box_utils.merge_boxes:188-204), on the host: (N, 4) xcycwh → (the
+    clusters' mean boxes (M, 4) fp64, each box's cluster (N,) int64). The
+    IoU is fp32, as the JAX package computes it."""
+    boxes = np.asarray(boxes, dtype=np.float64)
+    n = boxes.shape[0]
+    assignment = -np.ones(n, dtype=np.int64)
+    centers = []
+    b32 = torch.from_numpy(boxes.astype(np.float32))
+    iou = box_iou(b32, b32).numpy()
+    for i in range(n):
+        if assignment[i] >= 0:
+            continue
+        members = [j for j in range(n)
+                   if assignment[j] < 0 and iou[i, j] >= iou_thresh]
+        cid = len(centers)
+        for j in members:
+            assignment[j] = cid
+        centers.append(boxes[members].mean(axis=0))
+    return np.stack(centers), assignment

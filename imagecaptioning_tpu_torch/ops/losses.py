@@ -1,5 +1,5 @@
-"""Loss functions — port of `imagecaptioning_tpu/ops/losses.py` (:29-79,
-131-166), behaviour-compatible with the reference's criteria:
+"""Loss functions — port of `imagecaptioning_tpu/ops/losses.py`,
+behaviour-compatible with the reference's criteria:
 
 - `smoothed_cross_entropy`: the AlexCap families' criterion, torch
   `nn.CrossEntropyLoss(ignore_index=0, label_smoothing=0.1)` over the
@@ -9,6 +9,9 @@
   masked gather CE (`DenseCap/densecap/LSTMLoss.py:4-26`);
 - `sum_cross_entropy`: DenseCap's `CustomCrossEntropyLoss`, the RPN's
   captioning loss (`LSTMLoss.py:28-40`);
+- `temporal_sum_cross_entropy` and `log_softmax_nll`: DenseCap's
+  `TemporalCrossEntropyLoss` and `OurCrossEntropyCriterion`, declared in
+  the reference and on none of its paths (nor the port's);
 - `logistic_criterion`: the stable objectness loss
   (`DenseCap/densecap/LogisticCriterion.py:17-30`);
 - `smooth_l1` and `box_regression_loss`: the masked smooth-L1 on box
@@ -70,6 +73,40 @@ def sum_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     nll = -logp.gather(-1, t[:, None])[:, 0]
     mask = (t != null_token).float()
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def temporal_sum_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                               null_token: int = 0,
+                               batch_average: bool = True,
+                               time_average: bool = False) -> torch.Tensor:
+    """Masked NLL of logits (N, T, V) against targets (N, T), SUMMED, then
+    divided by N (`batch_average`) and/or T (`time_average`), not by the
+    non-NULL count (`LSTMLoss.py:4-26`)."""
+    n, t = targets.shape
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, targets[..., None].long())[..., 0]
+    total = torch.where(targets != null_token, nll, 0.0).sum()
+    if batch_average:
+        total = total / n
+    if time_average:
+        total = total / t
+    return total
+
+
+def log_softmax_nll(logits: torch.Tensor, targets: torch.Tensor,
+                    weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """LogSoftmax + NLL with optional per-class weights, torch
+    `NLLLoss(weight=w)`'s mean: the weighted sum of per-sample NLL over
+    the summed weights of the realized targets
+    (`OurCrossEntropyCriterion.py:4-14`)."""
+    c = logits.shape[-1]
+    logp = torch.log_softmax(logits.float().reshape(-1, c), dim=-1)
+    t = targets.reshape(-1).long()
+    nll = -logp.gather(-1, t[:, None])[:, 0]
+    if weights is None:
+        return nll.mean()
+    w = weights.float()[t]
+    return (nll * w).sum() / w.sum().clamp_min(1e-12)
 
 
 def doubly_stochastic_regularizer(alphas: torch.Tensor) -> torch.Tensor:

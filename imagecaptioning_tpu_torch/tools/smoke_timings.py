@@ -1,7 +1,7 @@
 """Where `chip_smoke.py`'s seconds go, function by function, on the card.
 
     python imagecaptioning_tpu_torch/tools/smoke_timings.py [--tree .]
-    python imagecaptioning_tpu_torch/tools/smoke_timings.py --phases 24,25
+    python imagecaptioning_tpu_torch/tools/smoke_timings.py --phases 25,26
 
 The first form runs `<tree>/chip_smoke.py`'s `main()` with every function
 defined at the top of that script wrapped in a timer, and prints, after
@@ -9,10 +9,10 @@ the script's own output, one line `TIMINGS {json}`: per function its
 inclusive seconds (a nested call counts in both) and its number of calls,
 the largest first. The script's own `phase_seconds` give each group of
 phases; these split them (e.g. the profiler's `profiled` over all its
-sites). The second form builds the kernels and runs only the trainers'
-evals (phase 24) and `evidence_run` (phase 25), each timed, and prints
-`PHASES {json}`. Run it as a file, so that `<tree>`'s package is
-imported.
+sites). The second form builds the kernels and runs only the named
+phases of the trainers' evals (24), `evidence_run` (25) and checkpoint
+interchange (26), each timed, and prints `PHASES {json}`. Run it as a
+file, so that `<tree>`'s package is imported.
 """
 
 from __future__ import annotations
@@ -53,8 +53,8 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--tree", default=".", help="the checkout to time")
     p.add_argument("--phases", default="",
-                   help="'24,25': only the trainers' evals and "
-                        "evidence_run")
+                   help="'24,25,26' or a part: only the trainers' evals, "
+                        "evidence_run, checkpoint interchange")
     args = p.parse_args()
     tree = os.path.abspath(args.tree)
     os.chdir(tree)
@@ -86,7 +86,8 @@ def main() -> int:
     _kernels.roi_align_bwd_lib()
     seconds = {"build": time.perf_counter() - t0}
     dev, out = torch.device("cuda:0"), Path("build/chip_smoke")
-    phases = {"24": cs.trainer_evals, "25": cs.evidence_runs}
+    phases = {"24": cs.trainer_evals, "25": cs.evidence_runs,
+              "26": cs.checkpoint_interchange}
     for name in args.phases.split(","):
         t0 = time.perf_counter()
         phases[name](dev, roi, out, card=torch.cuda.get_device_name(0))

@@ -109,15 +109,25 @@ class Accumulating:
         if self.every == 1:
             return True
         n = self.mini_step
+        # CUDA divides by a Python scalar as a multiply by its reciprocal,
+        # inexact at n + 1 = 3; a divisor tensor on the device divides
+        counts: Dict[tuple, torch.Tensor] = {}
+
+        def count(t: torch.Tensor) -> torch.Tensor:
+            key = (t.device, t.dtype)
+            if key not in counts:
+                counts[key] = torch.tensor(n + 1, dtype=t.dtype,
+                                           device=t.device)
+            return counts[key]
         for name, p in self.accumulated.items():
             acc = self.means.get(name)
             if p.grad is None:
                 if acc is not None:             # acc + (0 - acc) / (n + 1)
-                    acc.sub_(acc / (n + 1))
+                    acc.sub_(acc / count(acc))
                 continue
             if acc is None:
                 acc = self.means[name] = torch.zeros_like(p.grad)
-            acc.add_((p.grad - acc) / (n + 1))
+            acc.add_((p.grad - acc) / count(acc))
             p.grad = None
         self.mini_step = n + 1
         if self.mini_step < self.every:

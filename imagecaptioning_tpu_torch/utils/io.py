@@ -1,10 +1,12 @@
-"""JSON histories in the reference's log schema — port of
-`imagecaptioning_tpu/utils/io.py:34-130`.
+"""JSON histories in the reference's log schema and the reference's
+small option and loss helpers — port of `imagecaptioning_tpu/utils/io.py`.
 
 - loss history: a list of {"iter", "loss", "epoch time in ms"} records;
 - results history: a list of eval dicts, each carrying "iter",
   "best_val_score" and "best_iter" (`AlexCap/my_utils.py:10-18`,
-  `train_LSTM.py:89-94,131-133`).
+  `train_LSTM.py:89-94,131-133`);
+- `getopt`, `dict_average`, `average_values`, `build_loss_string`
+  (`my_utils.getopt`, DenseCap's `densecap_utils`).
 """
 
 from __future__ import annotations
@@ -12,6 +14,17 @@ from __future__ import annotations
 import json
 import os
 from typing import Any, Dict, List, Optional
+
+
+def getopt(opt, key: str, default=None):
+    """Dict-or-attribute option lookup (reference my_utils.getopt); a
+    None value reads as `default`."""
+    if opt is None:
+        return default
+    if hasattr(opt, "get"):
+        v = opt.get(key, default)
+        return default if v is None else v
+    return getattr(opt, key, default)
 
 
 def write_json(path: str, data: Any) -> None:
@@ -27,6 +40,39 @@ def write_json(path: str, data: Any) -> None:
 def read_json(path: str) -> Any:
     with open(path, "r") as f:
         return json.load(f)
+
+
+def dict_average(dicts) -> Dict[str, float]:
+    """Mean of each key over a list of numeric dicts, values that are not
+    numbers skipped (reference `densecap_utils.dict_average`)."""
+    sums: Dict[str, float] = {}
+    counts: Dict[str, int] = {}
+    for d in dicts:
+        for k, v in d.items():
+            try:
+                v = float(v)
+            except (TypeError, ValueError):
+                continue
+            sums[k] = sums.get(k, 0.0) + v
+            counts[k] = counts.get(k, 0) + 1
+    return {k: sums[k] / counts[k] for k in sums}
+
+
+def average_values(d: Dict) -> float:
+    """Mean of a dict's values, 0 for none (reference
+    `densecap_utils.average_values`)."""
+    vals = list(d.values())
+    return sum(vals) / len(vals) if vals else 0.0
+
+
+def build_loss_string(losses: Dict) -> str:
+    """'k1: v1, k2: v2, ..., total_loss: t', the per-iteration log line
+    (reference `densecap_utils.build_loss_string`)."""
+    parts = [f"{k}: {float(v):.5f}" for k, v in losses.items()
+             if k != "total"]
+    if "total" in losses:
+        parts.append(f"total_loss: {float(losses['total']):.5f}")
+    return ", ".join(parts)
 
 
 class LossHistory:

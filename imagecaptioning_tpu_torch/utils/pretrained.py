@@ -39,6 +39,21 @@ from imagecaptioning_tpu_torch.models.backbones.vit import ViTEncoder
 from imagecaptioning_tpu_torch.utils import weights
 
 
+def flatten_tree(tree: Mapping, prefix: str = "",
+                 sep: str = "/") -> Dict:
+    """A nested variables tree → its leaves under `sep`-joined paths
+    (`params/conv1/kernel`), the `.npz` layout; the inverse of
+    `unflatten_tree`."""
+    out: Dict = {}
+    for k, v in tree.items():
+        key = f"{prefix}{sep}{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, key, sep))
+        else:
+            out[key] = v
+    return out
+
+
 def unflatten_tree(flat: Mapping, sep: str = "/") -> Dict:
     tree: Dict = {}
     for key, v in flat.items():

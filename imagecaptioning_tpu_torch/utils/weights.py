@@ -8,11 +8,12 @@
   `export_lstm`/`export_reference_lstm_head` :730-762,
   `export_reference_transformer` and its block and decoder helpers
   :789-836), not an import.
-- `load_gt_checkpoint`: a `torch.save`d state dict in that layout (what
-  the JAX package's `export_reference_gt_model` + `save_state_dict`
-  write, or a reference `.pth`), minus the reference's duplicate `net.*`
-  registrations of the same tensors and, for the transformer head, its
-  dead encoder word embedding and the encoder position rows after row 0.
+- `load_gt_checkpoint` (`gt_model_state_dict`): a port checkpoint's
+  `model` entry, or a `torch.save`d state dict in that layout (what
+  `export_reference_gt_model` + `save_state_dict` write, or a reference
+  `.pth`), minus the reference's duplicate `net.*` registrations of the
+  same tensors and, for the transformer head, its dead encoder word
+  embedding and the encoder position rows after row 0.
 - `rpn_state_dict_from_jax`: the JAX `DenseCapRPN` params → the port's
   `DenseCapRPN` state_dict (JAX's module names, torch layouts), from the
   same trunk, classifier and LSTM-head helpers; the RPN's convolutions
@@ -40,8 +41,8 @@
   (`export_reference_transformer`, :789-802), the ViT's `encoder_vit.*`
   in torchvision's `vit_b_16` names (`export_vit`, :689-727) and its
   `decoder.*` (`export_reference_vitb_decoder`);
-  `load_alexcap_checkpoint` reads a port checkpoint or a
-  reference state dict of any family (VitbModel's `proj.*`,
+  `load_alexcap_checkpoint` (`alexcap_model_state_dict`) reads a port
+  checkpoint or a reference state dict of any family (VitbModel's `proj.*`,
   `class_token` and `encoder.*` → `encoder_vit.conv_proj.*`, … as
   `convert_reference_captioner`, :506-597, renames them).
 - `vit_flat_variables`: the inverse of `vit_state_dict`, a ViT
@@ -62,6 +63,7 @@ import torch
 from torch import nn
 
 from imagecaptioning_tpu_torch.models.backbones.vgg import VGG16_STAGES
+from imagecaptioning_tpu_torch.utils.torch_port import fc6_chw
 
 
 def _t(a) -> torch.Tensor:
@@ -124,9 +126,8 @@ def vgg_classifier_state_dict(params: Mapping, channels: int,
     if side * side * channels != w.shape[0]:
         raise ValueError(f"fc6 has {w.shape[0]} input rows, not a square "
                          f"pooled map of {channels} channels")
-    w = (w.reshape(side, side, channels, -1).transpose(2, 0, 1, 3)
-         .reshape(w.shape[0], -1))
-    sd = _linear({"kernel": w, "bias": params["fc6"]["bias"]}, f"{prefix}.0")
+    sd = {f"{prefix}.0.weight": _t(fc6_chw(w, side * side)),
+          f"{prefix}.0.bias": _t(params["fc6"]["bias"])}
     sd.update(_linear(params["fc7"], f"{prefix}.3"))
     return sd
 
@@ -540,17 +541,13 @@ def captioner_train_state_from_jax(params: Mapping,
     return convert(params), opt_sd
 
 
-def load_alexcap_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """The model state dict of a port training checkpoint (its `model`
-    entry), or of a reference AlexCap model's `state_dict()` saved with
-    `torch.save`: the CNN families' keys are the port's; VitbModel's
-    torchvision pieces (`proj.*`, `class_token`, `encoder.*`) go under
-    `encoder_vit.`, `proj` renamed `conv_proj` (VitbModel.py:159)."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(sd.get("model"), Mapping):
-        return sd["model"]
+def alexcap_model_state_dict(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """A reference AlexCap model's `state_dict()` → the port model's: the
+    CNN families' keys are the port's; VitbModel's torchvision pieces
+    (`proj.*`, `class_token`, `encoder.*`) go under `encoder_vit.`, `proj`
+    renamed `conv_proj` (VitbModel.py:159)."""
     if "class_token" not in sd:
-        return sd
+        return dict(sd)
     out = {}
     for k, v in sd.items():
         if k.startswith("proj."):
@@ -561,22 +558,41 @@ def load_alexcap_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def gt_model_state_dict(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """A reference-layout GT state dict → the port model's: without the
+    `net.vgg16_backbone.*`/`net.full_conv.*` duplicates the reference
+    registers for the same tensors; a transformer head's encoder keeps
+    position row 0 only, the one its single projected code reads, and
+    loses its `word_embedding`, which the reference's forward never uses
+    (AlexTransformer.py:111, :313-316; as the JAX package's
+    `convert_reference_gt_model`)."""
+    out = {k: v for k, v in sd.items() if not k.startswith("net.")
+           and k != "llm.encoder.word_embedding.weight"}
+    positions = "llm.encoder.position_embedding.weight"
+    if positions in out:
+        out[positions] = out[positions][:1].clone()
+    return out
+
+
+def load_alexcap_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The model state dict of a port training checkpoint (its `model`
+    entry), or of a reference AlexCap model's `state_dict()` saved with
+    `torch.save` (`alexcap_model_state_dict`)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd.get("model"), Mapping):
+        return sd["model"]
+    return alexcap_model_state_dict(sd)
+
 
 def load_gt_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """Load a reference-layout GT state dict saved with `torch.save`,
-    dropping the `net.vgg16_backbone.*`/`net.full_conv.*` duplicates the
-    reference registers for the same tensors. A transformer head's encoder
-    keeps position row 0 only, the one its single projected code reads,
-    and loses its `word_embedding`, which the reference's forward never
-    uses (AlexTransformer.py:111, :313-316; as the JAX package's
-    `convert_reference_gt_model`)."""
+    """The model state dict of a port checkpoint (its `model` entry:
+    `train_gt`'s, or `convert_checkpoint import-model`'s), or of a
+    reference-layout GT state dict saved with `torch.save`
+    (`gt_model_state_dict`)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    sd = {k: v for k, v in sd.items() if not k.startswith("net.")
-          and k != "llm.encoder.word_embedding.weight"}
-    positions = "llm.encoder.position_embedding.weight"
-    if positions in sd:
-        sd[positions] = sd[positions][:1]
-    return sd
+    if isinstance(sd.get("model"), Mapping):
+        return sd["model"]
+    return gt_model_state_dict(sd)
 
 
 @torch.no_grad()

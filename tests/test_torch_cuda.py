@@ -37,7 +37,11 @@ fp32 for ViT-B with its encoder frozen (gradients within 1e-4).
 Gradient accumulation (2 micro-steps an update): the tiny RPN's averaged
 gradient within 1e-4 relative (all but 1 % of each tensor's elements)
 and its weights within 2·lr, kernels A and B once a micro-step; the tiny
-AlexCap's fp64 averaged gradient and statistics within 1e-8.
+AlexCap's fp64 averaged gradient and statistics within 1e-8; at 3
+micro-steps, the same micro-gradients' means bitwise the CPU's, the
+updated weights within an ulp of the weight plus 8 of the lr (torch
+Adam's own rounding on each device). A converted ResNet trunk merged by
+`encoder_init` on the card: bitwise the CPU load.
 """
 
 import numpy as np
@@ -834,3 +838,60 @@ def test_tiny_eval_split_gt_on_card_matches_cpu(card, use_beam):
     assert got["ap_results"]["meteor"] == want["ap_results"]["meteor"]
     assert got["loss_results"] == pytest.approx(want["loss_results"],
                                                 rel=1e-4)
+
+
+@pytest.mark.cuda
+def test_k3_accumulated_update_on_card_is_the_cpus_bitwise(card):
+    """At grad_accum_steps 3 the running means divide by 2 and 3 (1/3 has
+    no exact reciprocal, which CUDA would multiply by for a Python
+    divisor): the card's means equal the CPU's bit for bit, from the same
+    micro-gradients. The updated weights are torch Adam's on each device,
+    which round apart whatever k is (the card's foreach kernels against
+    the CPU's one tensor at a time; at k = 1 too): each within one ulp of
+    the weight plus 8 ulps of the lr, the update's own roundings (measured
+    on an H100: 1.3 % of the weights differ, by at most one ulp of the
+    weight plus 2.8 ulps of the lr)."""
+    from imagecaptioning_tpu_torch.tools.accum_check import (
+        accumulated_update)
+    (m0, w0), (m1, w1) = (accumulated_update(d, 3) for d in (
+        torch.device("cpu"), card))
+    assert sorted(m0) == sorted(m1) and sorted(w0) == sorted(w1)
+    for name in m0:
+        assert torch.equal(m1[name], m0[name]), name
+    lr_ulp = float(np.spacing(np.float32(1e-4)))      # get_lstm_config's lr
+    for name in w0:
+        torch.testing.assert_close(w1[name], w0[name], rtol=2.0 ** -23,
+                                   atol=8 * lr_ulp, msg=name)
+
+
+@pytest.mark.cuda
+def test_converted_encoder_init_on_card_is_the_cpus_bitwise(card, tmp_path):
+    """A torchvision-layout ResNet (cut to one block a stage) converted by
+    `torch_port.convert_resnet` and merged by `encoder_init` into a model
+    on the card: every tensor equals the CPU load's and the source's."""
+    from imagecaptioning_tpu_torch.utils import torch_port as tp
+    from imagecaptioning_tpu_torch.utils.pretrained import (
+        apply_encoder_init, flatten_tree)
+    src = seeded_init_(_tiny_alexcap(torch.device("cpu")), 0)
+    gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():       # BatchNorm's scales, shifts and statistics
+        for t in [*src.features.parameters(), *src.features.buffers()]:
+            if t.dim() == 1 and t.dtype.is_floating_point:
+                t.uniform_(0.5, 1.5, generator=gen)
+    names = {"0": "conv1", "1": "bn1", "4": "layer1", "5": "layer2",
+             "6": "layer3", "7": "layer4"}
+    tv = {}
+    for k, v in src.features.state_dict().items():
+        head, _, tail = k.partition(".")
+        tv[f"{names[head]}.{tail}"] = v.numpy()
+    npz = str(tmp_path / "r.npz")
+    np.savez(npz, **flatten_tree(tp.convert_resnet(tv, stages=(1, 1, 1,
+                                                               1))))
+    loaded = [apply_encoder_init(seeded_init_(_tiny_alexcap(d), 1), npz,
+                                 "features").features.state_dict()
+              for d in (torch.device("cpu"), card)]
+    want = src.features.state_dict()
+    for name, v in want.items():
+        assert loaded[1][name].is_cuda, name
+        assert torch.equal(loaded[1][name].cpu(), loaded[0][name]), name
+        assert torch.equal(loaded[0][name], v), name

@@ -333,3 +333,52 @@ def test_evidence_run_gt_writes_the_jax_artifacts(tmp_path, capsys,
     assert set(hist[0]) == {"iter", "loss_results", "ap_results",
                             "num_images", "best_val_score", "best_iter"}
     assert summary["final_test"]["records"] == saved["final_test"]["records"]
+
+
+# the JAX script's AlexCap summary: the driver's summary without state,
+# model and loader, plus history and truncated
+CAPTION_SUMMARY = {"iters", "max_iter", "final_loss", "best_val_score",
+                   "best_iter", "final_test", "loss_file", "result_file",
+                   "save_path", "history", "truncated"}
+
+
+@pytest.mark.parametrize("model,curves_raise", [("lstm_attention", True),
+                                                ("vitb", False)])
+def test_evidence_run_alexcap_writes_the_jax_artifacts(
+        tmp_path, capsys, monkeypatch, model, curves_raise):
+    """`--model lstm_attention` with `display_logs` made to raise, as it
+    does without matplotlib (the summary is still written), and `--model
+    vitb` (scratch, then its encoder through `encoder_init`): the JAX
+    script's artifact names and summary keys."""
+    if curves_raise:
+        def no_curves(*a, **k):
+            raise ImportError("No module named 'matplotlib'")
+        monkeypatch.setattr(visualize, "display_logs", no_curves)
+    evidence_run.main(["--model", model, "--epochs", "1", "--images", "20",
+                       "--batch-size", "3", "--device", "cpu",
+                       "--out", str(tmp_path)])
+    tags = ([f"{model}_learnable_bs3"] if model != "vitb" else
+            [f"vitb_{k}_learnable_bs3" for k in ("scratch", "pretrained")])
+    want = set()
+    for tag in tags:
+        want |= {f"summary_{tag}.json", f"loss_history_{tag}.json",
+                 f"results_history_{tag}.json", f"best_model_{tag}.ckpt",
+                 f"vis_{tag}.jpg", f"vis_{tag}_attention.jpg"}
+        if not curves_raise:
+            want.add(f"{tag}.png")
+    if model == "vitb":
+        want.add("vitb_encoder_pretrained.npz")
+    assert {p.name for p in tmp_path.iterdir()} == want
+    assert ("curves skipped: No module named 'matplotlib'"
+            in capsys.readouterr().out) == curves_raise
+    for tag in tags:
+        with open(tmp_path / f"summary_{tag}.json") as f:
+            saved = json.load(f)
+        assert set(saved) == CAPTION_SUMMARY
+        assert set(saved["final_test"]) == {"greedy", *(
+            f"beam_{k}" for k in range(1, 6))}
+        assert saved["final_test"]["greedy"]["num_images"] == 3
+        assert saved["history"] == {
+            "file": f"results_history_{tag}.json", "evals": 1,
+            "final_eval_iter": 4}
+        assert saved["truncated"] is False
