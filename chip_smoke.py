@@ -6,8 +6,9 @@ DenseCap model's training and serving (phases 12–15), the four
 AlexCap families: the LSTM captioner on ResNet-101 (phases 16–18), the
 attention-LSTM (19), the Transformer (20) and ViT-B (21), gradient
 accumulation in the RPN (22) and AlexCap LSTM (23) trainers, the
-trainers' own periodic evals (24), `evidence_run` (25) and checkpoint
-interchange (26: `convert_checkpoint`, `encoder_init`, `infer`).
+trainers' own periodic evals (24), `evidence_run` (25), checkpoint
+interchange (26: `convert_checkpoint`, `encoder_init`, `infer`) and
+data-parallel training across processes (27).
 
     python3 chip_smoke.py
 
@@ -145,7 +146,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    streaming path's): 2 warm-up and 6 event-timed steps in the frozen
    phase (trunk in eval mode, no gradient, no Adam state), then the same
    in the finetune phase (BatchNorm on batch statistics, the trunk
-   trained): images/s, busy (the larger of 2 profiled steps), idle share,
+   trained): images/s, busy (of PROFILED_CALLS profiled steps), idle share,
    kernels a step and peak memory each; a checkpoint (model with its
    BatchNorm buffers, optimizer, generator, step, iterators) restored
    bitwise;
@@ -227,7 +228,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    reference LSTMModel `.pth` (ResNet-101) through `import-model` and
    `infer --model-type lstm`, tokens identical. Preprocessing needs h5py
    and does not run on the card: the line says whether h5py imports.
-Every line of phases 4–26 carries the card's name and power limit. The
+27. data-parallel training across processes (`parallel/mesh.py`): (a)
+   the RPN trainer's entry point under `python -m torch.distributed.run
+   --standalone --nproc_per_node=1` on NCCL at full width (2 steps and
+   its eval, its ROI launches); (b) a world of 2 processes under gloo on
+   this one card (gradients staged through the host), each on its rows
+   of the RPN step at full width (4 × 720² images × 32 regions, 2 a rank,
+   128 + 128 sampled, dropout and the sampler on, fp32), held against the
+   one-process step on this card by phase 14's gate, with K1, A and B
+   once a rank; (c) the AlexCap LSTM step after the finetune boundary at
+   batch 12 (6 a rank), BatchNorm over the global batch, fp64, held alike
+   and on its running statistics (`dp_training`).
+Every line of phases 4–27 carries the card's name and power limit. The
 kernels line counts each kernel's launches over every path that runs it
 (`launches`, split in `launches_by_path`): the fused forward in both GT
 heads' serving and training and in RPN training (`rpn_training`, one a
@@ -244,7 +256,9 @@ with their evals' share (`gt_trainer_evals`, `rpn_trainer_evals`: K1
 only), phase 25's runs (`evidence_gt`, `evidence_rpn`;
 `evidence_lstm_attention`: 0) and phase 26's (`interchange_gt_infer`:
 K1; `interchange_gt_step_after_encoder_init`: K1 and A;
-`interchange_lstm_infer`: 0).
+`interchange_lstm_infer`: 0), and phase 27's (`dp`: both ranks' steps,
+K1, A and B once each a rank; `dp_torchrun_train_DenseCap`: the
+torchrun trainer's steps and eval).
 The last three lines: the card as nvidia-smi reports it, one JSON line of
 per-kernel numbers, and {"ok": true, "device": ...}. The profiler's full
 tables go to <out-dir>/chip_smoke_*_profile.txt, one for each profiled
@@ -291,13 +305,15 @@ LOSS_REL_TOL = 1e-4
 RPN_IMAGES, RPN_PROPOSALS, RPN_SERVE_CALLS = 4, 300, 2
 # kinds of the card's work in a profiled training step, by kernel name
 # (the first match wins; the rest is elementwise work and reductions)
-# profiled calls of each decode or step: the busy time read is the
-# larger of the two (the profiler sometimes drops a call's events, which
-# only lowers a call's busy time; the card's own spread is ±1 %)
-PROFILED_CALLS = 2
+# profiled calls of each decode or step (PR 12: 1, from 2, for phase
+# 27's seconds; with more, the busy time read is the median, the larger
+# of two: the profiler sometimes drops a call's events, which only lowers
+# a call's busy time; the card's own spread is ±1 %)
+PROFILED_CALLS = 1
 # launches a CUPTI mean is taken over (the kernels' device times are
-# steady; the profiler's cost grows with the events it records)
-CUPTI_CALLS = 50
+# steady; the profiler's cost grows with the events it records; 50 before
+# PR 12)
+CUPTI_CALLS = 25
 KERNEL_KINDS = (("convolution (cuDNN)", ("fprop", "dgrad", "wgrad")),
                 ("matrix product (cuBLAS)", ("gemm",)),
                 ("optimizer (foreach)", ("multi_tensor_apply",)),
@@ -675,7 +691,8 @@ def serve(dev, model, api, normalize_images, roi, flush, label="serving",
 
 def profiled(fn, out_dir: Path, table: str, calls: int = PROFILED_CALLS):
     """`calls` profiled calls of `fn` (each synchronised) → the median call
-    by the card's busy ms (of 2, the larger): its wall ms, busy ms (kernels and copies, not
+    by the card's busy ms (of 2, the larger): its wall ms, busy ms
+    (kernels and copies, not
     the optimizer's annotated ranges nor the profiler's buffers), the busy
     ms of every call, kernels and copies, busy ms and counts by kind
     (KERNEL_KINDS) and the top kernels; its table goes to `out_dir`/`table`.
@@ -1555,7 +1572,8 @@ def alexcap_serve(dev, roi, out_dir: Path, card="", model_type="lstm"):
     every step (not the LSTM's, which has none). captions/s from CUDA
     events over ALEX_CALLS calls after a warm-up and before this phase's
     profiler; then the median (of 2, the larger) card busy time of
-    PROFILED_CALLS profiled calls each, its idle share against the
+    PROFILED_CALLS profiled calls each (1 since PR 12), its idle share
+    against the
     event-timed call, and the kernels a call. No ROI kernel runs on this path: every ROI wrapper's
     count stays 0."""
     from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
@@ -3108,7 +3126,348 @@ def checkpoint_interchange(dev, roi, out_dir: Path, card=""):
     return out
 
 
+# ------------- phase 27: data-parallel training across processes (ranks)
+
+DP_WORLD = 2                  # ranks of the gloo world on the one card
+DP_ALEX_BATCH = 12            # the AlexCap step's global batch (6 a rank)
+DP_TIMEOUT = 900              # seconds for a child run
+DP_KERNELS = ("roi_align_batch_chw", "roi_align_bwd_features",
+              "roi_align_bwd_boxes")
+DP_TRAINER_ARGS = ("max_iters=2", "save_checkpoint_every=2",
+                   "losses_log_every=1")
+
+
+def dp_rpn_inputs():
+    """The RPN step's global batch: TRAIN_BATCH uint8 images of
+    TRAIN_IMAGE², N_REGIONS GT boxes each (edge boxes included, one padded
+    row), captions of 2..SEQ words."""
+    rng = np.random.RandomState(SEED + 27)
+    n, r, s = TRAIN_BATCH, N_REGIONS, TRAIN_IMAGE
+    lengths = rng.randint(2, SEQ + 1, (n, r))
+    labels = rng.randint(1, VOCAB + 1, (n, r, SEQ))
+    labels[np.arange(SEQ)[None, None] >= lengths[..., None]] = 0
+    mask = np.ones((n, r), np.float32)
+    mask[1, -1] = 0.0
+    return (torch.from_numpy(rng.randint(0, 256, (n, s, s, 3),
+                                         dtype=np.uint8)),
+            torch.from_numpy(edge_boxes(rng, n, r, s, s)),
+            torch.from_numpy(labels), torch.from_numpy(mask))
+
+
+def dp_step_result(model, state, grads, losses, launches) -> dict:
+    """A step's outcome on the host: the weights before it (`state`) and
+    after it, the gradient the update took, the losses and the ROI
+    launches."""
+    return {"state": state,
+            "params": {n: p.detach().cpu() for n, p in
+                       model.named_parameters()},
+            "stats": {n: b.detach().cpu() for n, b in model.named_buffers()
+                      if n.endswith(("running_mean", "running_var"))},
+            "grads": grads, "losses": losses, "launches": launches}
+
+
+def dp_initial(model, state, init):
+    """`model` with the weights `state` (a CPU state dict), or `init`
+    applied when there are none → (model, its weights on the host)."""
+    if state is None:
+        init(model)
+        state = {k: v.detach().cpu().clone()
+                 for k, v in model.state_dict().items()}
+    else:
+        model.load_state_dict(state)
+    return model, state
+
+
+def dp_rpn_step(dev, roi, dp, state=None) -> dict:
+    """One RPN train step at full width in fp32 (phase 14's gate is an
+    fp32 one) on `dp`'s rows of `dp_rpn_inputs`, dropout on and the
+    sampler's keys from the trainer's generator (each rank draws the
+    global batch's and keeps its rows), seed 0's weights with the box
+    heads moved off zero (or `state`); every ROI launch of the step
+    counted."""
+    from imagecaptioning_tpu_torch.config.dense_configs import \
+        get_densecap_config
+    from imagecaptioning_tpu_torch.train import dense_driver as dd
+    from imagecaptioning_tpu_torch.utils.weights import seeded_init_
+
+    cfg = get_densecap_config().replace(
+        batch_size=TRAIN_BATCH, max_regions=N_REGIONS,
+        compute_dtype="float32", param_dtype="float32")
+    model, state = dp_initial(
+        dd.build_rpn_model(cfg, VOCAB, SEQ, dev), state,
+        lambda m: move_box_heads_(seeded_init_(m, SEED), SEED + 9))
+    opt = dd.make_dense_optimizer(cfg, model, 0)
+    grads = {}
+    opt.register_step_pre_hook(lambda *_: grads.update(
+        {n: p.grad.detach().cpu().clone()
+         for n, p in model.named_parameters() if p.grad is not None}))
+    step = dd.make_rpn_train_step(model, opt, torch.Generator(
+        dev).manual_seed(SEED), dp)
+    images, boxes, labels, mask = (t[dp.rows(TRAIN_BATCH)].to(dev)
+                                   for t in dp_rpn_inputs())
+    zero_roi_counts(roi)
+    losses = step(images, boxes, mask, labels)
+    torch.cuda.synchronize()
+    launches = roi_counts(roi)
+    return dp_step_result(model, state, grads, {k: float(v) for k, v in
+                                                losses.items()}, launches)
+
+
+def dp_alexcap_step(dev, roi, dp, state=None) -> dict:
+    """One AlexCap LSTM step after the finetune boundary at full width
+    (ResNet-101, BatchNorm on the global batch's statistics) in fp64, as
+    phase 18 holds the ResNet families, dropout on, on `dp`'s rows of
+    DP_ALEX_BATCH uint8 CelebA-size images, from seed 0's weights or
+    `state`."""
+    from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
+    from imagecaptioning_tpu_torch.models.captioners import build_model
+    from imagecaptioning_tpu_torch.train import optim
+    from imagecaptioning_tpu_torch.train.step import make_train_step
+    from imagecaptioning_tpu_torch.utils.weights import seeded_init_
+
+    dtype = torch.float64
+    cfg = alexcap_cfg("lstm", compute_dtype="float32", use_dropout=True,
+                      batch_size=DP_ALEX_BATCH)
+    rng = np.random.RandomState(SEED + 28)
+    images = torch.from_numpy(rng.randint(0, 256, (DP_ALEX_BATCH, *ALEX_HW,
+                                                   3), dtype=np.uint8))
+    labels = torch.from_numpy(rng.randint(1, ALEX_VOCAB + 1,
+                                          (DP_ALEX_BATCH, ALEX_SEQ)))
+    labels[1::3, 9:] = 0
+    model, state = dp_initial(
+        build_model(cfg, ALEX_VOCAB, ALEX_SEQ, device=dev), state,
+        lambda m: seeded_init_(m, SEED))
+    model.to(dtype)
+    model.encoder.compute_dtype = dtype
+    opt = optim.make_optimizer(cfg, model, 10)
+    grads = {}
+    opt.register_step_pre_hook(lambda *_: grads.update(
+        {n: p.grad.detach().cpu().clone()
+         for n, p in model.named_parameters() if p.grad is not None}))
+    step = make_train_step(
+        model, opt, torch.Generator(dev).manual_seed(SEED),
+        lambda u8: resnet_v2_preprocess(u8, dtype=dtype),
+        clip_norm=cfg.grad_clip_norm, dp=dp)
+    rows = dp.rows(DP_ALEX_BATCH)
+    zero_roi_counts(roi)
+    out = step(images[rows].to(dev), labels[rows].to(dev))
+    torch.cuda.synchronize()
+    return dp_step_result(model, state, grads,
+                          {"total": float(out["loss"])}, roi_counts(roi))
+
+
+def dp_child(mode: str, argv) -> int:
+    """A process that phase 27 starts: `--dp-rank OUT_DIR` is one rank of
+    the gloo world on cuda:0 (torchrun's environment, set by
+    `dp_training`): the RPN step, then the AlexCap step, each on its rows;
+    rank 0 then runs each step again as one process (no collective) from
+    the same weights and holds the world's outcome against it
+    (`dp_agreement`); every rank writes its launches and losses.
+    `--dp-trainer KEY=VALUE ...` runs the RPN trainer's entry point
+    (`imagecaptioning_tpu_torch.train_DenseCap.main`) under torchrun and
+    prints its ROI launches."""
+    import os
+
+    from imagecaptioning_tpu_torch.config.dense_configs import \
+        get_densecap_config
+    from imagecaptioning_tpu_torch.ops import roi_align as roi
+    from imagecaptioning_tpu_torch.parallel import mesh as meshlib
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card available", file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if mode == "--dp-trainer":
+        from imagecaptioning_tpu_torch import train_DenseCap
+        zero_roi_counts(roi)
+        train_DenseCap.main(list(argv))
+        print(f"DP_TRAINER_LAUNCHES {json.dumps(roi_counts(roi))}",
+              flush=True)
+        return 0
+    out_dir = Path(argv[0])
+    dev = meshlib.init_distributed(
+        "cuda:0", backend="gloo",
+        init_method=f"file://{out_dir.resolve() / 'dp_rendezvous'}")
+    rank = int(os.environ["RANK"])
+    steps = (("rpn", dp_rpn_step, get_densecap_config().learning_rate,
+              False),
+             ("alexcap", dp_alexcap_step, alexcap_cfg().learning_rate, True))
+    try:
+        mesh = meshlib.create_mesh((-1,), ("data",), dev)
+        out = {"mesh": mesh.shape, "launches": {}, "losses": {},
+               "seconds": {}}
+        for name, fn, lr, bn in steps:
+            t0 = time.perf_counter()
+            world = fn(dev, roi, mesh.data)
+            out["launches"][name] = world["launches"]
+            out["losses"][name] = world["losses"]
+            out["seconds"][name] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            if rank == 0:
+                t0 = time.perf_counter()
+                one = fn(dev, roi, meshlib.IDENTITY, world["state"])
+                out[name] = dp_agreement(world, one, lr, bn)
+                out[name]["one_process_seconds"] = time.perf_counter() - t0
+                del one
+            del world
+            torch.cuda.empty_cache()
+        (out_dir / f"dp_rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        meshlib.shutdown()
+    return 0
+
+
+def dp_agreement(got: dict, want: dict, lr: float, bn: bool) -> dict:
+    """Phase 14's gate between two step outcomes (`dp_step_result`): each
+    loss LOSS_REL_TOL relative; each gradient GRAD_REL_TOL relative in
+    all but GRAD_SHARE_TOL of each tensor's elements (`grad_agreement`),
+    the same tensors on both sides; every weight within 2·lr, at most 1e-5
+    of them more than 1e-7 apart; with `bn`, the BatchNorm statistics
+    within BN_TOL."""
+    loss_rel = max(abs(got["losses"][k] - v) / max(abs(v), 1e-30)
+                   for k, v in want["losses"].items() if v != 0.0)
+    agree = grad_agreement(got["grads"], want["grads"])
+    worst, off, total = 0.0, 0, 0
+    for name, w in want["params"].items():
+        d = (got["params"][name].double() - w.double()).abs()
+        worst = max(worst, float(d.max()))
+        off += int((d > 1e-7).sum())
+        total += d.numel()
+    stats = max((float((got["stats"][k].double() - v.double()).abs().max())
+                 for k, v in want["stats"].items()), default=0.0)
+    res = {"loss_rel_err": loss_rel,
+           "losses": [got["losses"], want["losses"]],
+           "grads_compared": len(agree),
+           "grads_same_tensors": sorted(got["grads"]) == sorted(
+               want["grads"]),
+           "grad_rel_err_max": max(e for e, _ in agree.values()),
+           "grad_share_over_tol_max": max(o for _, o in agree.values()),
+           "param_max_abs_diff": worst, "params_over_1e-7_share":
+           off / total, "bn_running_stats_max_abs_err": stats}
+    res["ok"] = (loss_rel <= LOSS_REL_TOL and res["grads_same_tensors"]
+                 and res["grad_share_over_tol_max"] <= GRAD_SHARE_TOL
+                 and worst <= 2 * lr + 1e-7 and off / total <= 1e-5
+                 and (not bn or stats <= BN_TOL))
+    return res
+
+
+def dp_training(dev, roi, out_dir: Path, card="") -> dict:
+    """Phase 27: data-parallel training across processes.
+    (a) the RPN trainer's entry point under `python -m
+        torch.distributed.run --standalone --nproc_per_node=1` on NCCL at
+        full width (the default DenseCap config, synthetic data), 2
+        steps and its eval; its ROI launches;
+    (b) a world of DP_WORLD processes under gloo on this one card: the
+        RPN step at full width (TRAIN_BATCH × TRAIN_IMAGE² × N_REGIONS,
+        TRAIN_BATCH / DP_WORLD images a rank, 128 + 128 sampled, dropout
+        and the sampler on, fp32), held against the one-process step on
+        this card by phase 14's gate (`dp_agreement`); K1, A and B once a
+        rank;
+    (c) in the same world, the AlexCap LSTM step after the finetune
+        boundary at batch DP_ALEX_BATCH (6 a rank), BatchNorm over the
+        global batch, fp64, held alike and on its statistics.
+    Rank 0 runs each one-process step after the world's, from the same
+    weights; it draws the same dropout masks and sampler keys (the ranks
+    draw the global batch's and keep their rows)."""
+    import os
+    import shutil
+
+    res = {"card": card}
+    t0 = time.perf_counter()
+    run_dir = out_dir / "dp_torchrun"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    for f in ("dp_rendezvous", *(f"dp_rank{r}.json"
+                                 for r in range(DP_WORLD))):
+        (out_dir / f).unlink(missing_ok=True)
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(root), os.environ.get("PYTHONPATH", "")])}
+    # (a) and the world of (b), (c) side by side: their seconds are mostly
+    # the processes' start-up and model set-up, and neither is a speed
+    # each child's output to a file: a pipe nobody reads yet could fill
+    logs = [run_dir / f"{name}.log" for name in
+            ("trainer", "trainer_err", *(f"rank{r}" for r in
+                                         range(DP_WORLD)))]
+    files = [open(f, "w") for f in logs]
+    trainer = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", str(root / "chip_smoke.py"), "--dp-trainer",
+         *DP_TRAINER_ARGS], cwd=run_dir, env=env, stdout=files[0],
+        stderr=files[1])
+    procs = [subprocess.Popen(
+        [sys.executable, str(root / "chip_smoke.py"), "--dp-rank",
+         str(out_dir)], env={**env, "RANK": str(r),
+                             "WORLD_SIZE": str(DP_WORLD),
+                             "LOCAL_RANK": str(r)},
+        stdout=files[2 + r], stderr=subprocess.STDOUT)
+        for r in range(DP_WORLD)]
+    deadline = time.monotonic() + DP_TIMEOUT
+    while any(p.poll() is None for p in procs):
+        if (any(p.poll() not in (None, 0) for p in procs)
+                or time.monotonic() > deadline):
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    res["world_seconds"] = time.perf_counter() - t0
+    try:
+        trainer.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        trainer.kill()
+        trainer.wait()
+    for f in files:
+        f.close()
+    out, err, *rank_logs = (f.read_text() for f in logs)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("data-parallel ranks failed: "
+                             + " | ".join(log[-3000:] for log in rank_logs))
+    lines = out.splitlines()
+    found = [ln for ln in lines if ln.startswith("DP_TRAINER_LAUNCHES ")]
+    if trainer.returncode != 0 or not found:
+        raise AssertionError(f"torchrun train_DenseCap failed "
+                             f"({trainer.returncode}): {err[-3000:]}")
+    res["torchrun_nccl_world1"] = {
+        "seconds": time.perf_counter() - t0,
+        "log": [ln for ln in lines if ln.startswith(("iter ", "eval@"))],
+        "launches": json.loads(found[-1].split(" ", 1)[1])}
+    ranks = [json.loads((out_dir / f"dp_rank{r}.json").read_text())
+             for r in range(DP_WORLD)]
+    res["mesh"] = ranks[0]["mesh"]
+    res["rank_launches"] = [r["launches"] for r in ranks]
+    res["rank_seconds"] = [r["seconds"] for r in ranks]
+    for name in ("rpn", "alexcap"):
+        res[name] = ranks[0][name]
+        res[name]["rank_losses"] = [r["losses"][name] for r in ranks]
+    once = {k: 1 for k in DP_KERNELS}
+    res["roi_once_a_rank"] = all(
+        {k: r["launches"]["rpn"][k] for k in DP_KERNELS} == once
+        for r in ranks)
+    res["launches"] = {k: sum(r["launches"]["rpn"][k]
+                              + r["launches"]["alexcap"][k] for r in ranks)
+                       for k in ROI_WRAPPERS}
+    res["tolerance"] = (f"phase 14's: each loss {LOSS_REL_TOL} relative; "
+                        f"each gradient {GRAD_REL_TOL} relative in all but "
+                        f"{GRAD_SHARE_TOL} of each tensor's elements; "
+                        f"params within 2 lr, at most 1e-5 of them more "
+                        f"than 1e-7 apart; BatchNorm statistics {BN_TOL}")
+    print(f"data-parallel training (world {DP_WORLD}, gloo on one card; "
+          f"torchrun NCCL world 1): {json.dumps(res)}", flush=True)
+    a = res["torchrun_nccl_world1"]["launches"]
+    if not (res["rpn"]["ok"] and res["alexcap"]["ok"]
+            and res["roi_once_a_rank"] and res["mesh"] == {"data": DP_WORLD}
+            and all(a[k] > 0 for k in DP_KERNELS)):
+        raise AssertionError(f"data-parallel training failed: {res}")
+    return res
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] in ("--dp-rank", "--dp-trainer"):
+        return dp_child(sys.argv[1], sys.argv[2:])
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out-dir", type=Path, default=Path("build/chip_smoke"),
                    help="where the profiler tables are written")
@@ -3318,6 +3677,9 @@ def main() -> int:
     # phase 26: convert_checkpoint, encoder_init and infer
     interchange = checkpoint_interchange(dev, roi, args.out_dir, card=smi)
     lap("26 checkpoint interchange")
+    # phase 27: data-parallel training across processes
+    dp = dp_training(dev, roi, args.out_dir, card=smi)
+    lap("27 data-parallel training")
     eval_paths = {
         "gt_trainer_with_evals": evals["gt"]["launches"],
         "gt_trainer_evals": {n: sum(e["roi_launches"][n]
@@ -3331,7 +3693,12 @@ def main() -> int:
         "evidence_rpn": evidence["rpn"]["launches"],
         "interchange_gt_infer": interchange["gt_infer"]["launches"],
         "interchange_gt_step_after_encoder_init": interchange[
-            "gt_train_step"]["launches"]}
+            "gt_train_step"]["launches"],
+        # phase 27: both ranks' steps of the gloo world, and the torchrun
+        # trainer's run with its eval
+        "dp": dp["launches"],
+        "dp_torchrun_train_DenseCap": dp["torchrun_nccl_world1"][
+            "launches"]}
     alexcap_paths["alexcap_trainer_with_evals"] = evals["alexcap"]["launches"]
     alexcap_paths["evidence_lstm_attention"] = evidence[
         "alexcap_evidence"]["launches"]
@@ -3417,7 +3784,8 @@ def main() -> int:
                           "proposals' gradient; GT boxes are data)")
             + "; k per applied update at grad_accum_steps k; in the "
               "trainers with their evals and evidence_run; in a GT step "
-              "after encoder_init from converted torchvision weights",
+              "after encoder_init from converted torchvision weights; "
+              "once a rank a step in data-parallel RPN training (dp)",
             "launches_per_applied_update_k2": rpn_accum[
                 "launches_per_applied_update"][name],
             "max_abs_err": max(rpn_roi[name]["max_abs_err"],
@@ -3461,6 +3829,7 @@ def main() -> int:
                "grad_accum_k2": {"rpn": rpn_accum, "alexcap": alex_accum},
                "trainer_evals": evals, "evidence_run": evidence,
                "checkpoint_interchange": interchange,
+               "data_parallel": dp,
                "seconds": time.perf_counter() - t_start,
                "phase_seconds": laps}
     print(f"summary: {json.dumps(summary)}")

@@ -6,17 +6,19 @@
 Every field of the reference's hard-coded edict factories
 (``AlexCap/LSTM_opts.py:8-54`` …) is kept, and so is the artifact name
 mangling (``name_LSTM_model``, ``LSTM_opts.py:57-82``), so the loss,
-result and checkpoint file names are the reference's. The JAX package's
-mesh and device fields (``mesh_shape``, ``mesh_axis_names``, ``backend``,
-``device``) are left out, and `apply_overrides` refuses them: the port runs
-on one card, and the entry points take it as an argument (``--device``).
+result and checkpoint file names are the reference's. The mesh fields
+(``mesh_shape``, ``mesh_axis_names``) are the JAX package's, with its
+defaults: every data rank of a torchrun launch takes a share of the batch
+(`parallel/mesh.py`). Its device fields (``backend``, ``device``) are left
+out, and `apply_overrides` refuses them: the entry points take the device
+as an argument (``--device``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, replace
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 
 @dataclass
@@ -69,6 +71,10 @@ class CaptionConfig:
     seed: int = 123
     gpu: int = 0
     timing: bool = False
+
+    # a torchrun launch's ranks (parallel/mesh.py): -1 = all on 'data'
+    mesh_shape: Tuple[int, ...] = (-1,)
+    mesh_axis_names: Tuple[str, ...] = ("data",)
 
     # ---- additions of the JAX package (no reference counterpart) ----
     compute_dtype: str = "bfloat16"
@@ -237,7 +243,17 @@ def get_config(model_type: str) -> CaptionConfig:
     return factories[model_type]()
 
 
-_LEFT_OUT = ("mesh_shape", "mesh_axis_names", "backend", "device")
+_LEFT_OUT = ("backend", "device")
+
+
+def parse_tuple(v: str) -> tuple:
+    """A comma-separated override: ints where every item is one (a mesh
+    shape, the trunk's stages), else strings (the mesh's axis names)."""
+    items = tuple(x.strip() for x in v.split(","))
+    try:
+        return tuple(int(x) for x in items)
+    except ValueError:
+        return items
 
 
 def apply_overrides(cfg: CaptionConfig,
@@ -249,7 +265,7 @@ def apply_overrides(cfg: CaptionConfig,
     for k, v in overrides.items():
         if k in _LEFT_OUT:
             raise KeyError(f"{k} is a field of the JAX package's config; the "
-                           f"port runs on one card, named by --device")
+                           f"port's device is named by --device")
         if k not in fields:
             raise KeyError(f"unknown config field: {k}")
         typ = type(getattr(cfg, k))
@@ -261,6 +277,6 @@ def apply_overrides(cfg: CaptionConfig,
             elif typ is float:
                 v = float(v)
             elif typ is tuple:
-                v = tuple(int(x) for x in v.split(","))
+                v = parse_tuple(v)
         kw[k] = v
     return cfg.replace(**kw)

@@ -99,6 +99,7 @@ class DenseConfig:
     # ---- additions without a reference counterpart (as in the JAX package) ----
     batch_size: int = 4              # reference is locked to 1 image/step
     max_regions: int = 32            # padded region slab per image
+    # a torchrun launch's ranks (parallel/mesh.py): -1 = all on 'data'
     mesh_shape: Tuple[int, ...] = (-1,)
     mesh_axis_names: Tuple[str, ...] = ("data",)
     compute_dtype: str = "bfloat16"  # VGG trunk + classifier head
@@ -133,6 +134,13 @@ class DenseConfig:
         return getattr(self, key, default)
 
 
+def _parse_tuple(value: str, like: tuple) -> tuple:
+    """A comma-separated override, each item typed like the default's
+    (`mesh_shape` ints, `mesh_axis_names` strings, the anchor floats)."""
+    typ = type(like[0]) if like else str
+    return tuple(typ(x.strip()) for x in value.split(","))
+
+
 def apply_overrides(cfg: DenseConfig, pairs) -> DenseConfig:
     """`KEY=VALUE` strings → config fields, typed like the defaults (the
     root `traingt.py`'s parsing)."""
@@ -142,6 +150,8 @@ def apply_overrides(cfg: DenseConfig, pairs) -> DenseConfig:
             value = value.lower() in ("1", "true", "yes", "on")
         elif isinstance(cur, (int, float)):
             value = type(cur)(value)
+        elif isinstance(cur, tuple):
+            value = _parse_tuple(value, cur)
         cfg = cfg.replace(**{key: value})
     return cfg
 

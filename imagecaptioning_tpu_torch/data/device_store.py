@@ -8,6 +8,9 @@ preprocess and the first convolution then run on the card. When the
 split does not fit the budget (`fits`), the driver streams batches from
 the host instead (`loader.prefetch_batches`): the same batches in the same
 order, since both paths follow `AlexDataLoader.epoch_position_batches`.
+In a data-parallel run every rank stages the whole split on its own card
+(replicated, as the JAX package stages it over its mesh) and gathers
+only its rows of each index batch (the driver passes them).
 """
 
 from __future__ import annotations

@@ -1,0 +1,214 @@
+"""Compile-and-run checks of the port — counterpart of the JAX package's
+`__graft_entry__.py` (`entry`, `dryrun_multichip`).
+
+`entry()` returns the forward-loss step of the flagship model, the ViT-B/16
+captioner (the reference's heaviest family, `train_ViTB.py`), with its
+arguments. `dryrun_multichip(n)` starts n processes, a process group over
+them (gloo on the CPU, or NCCL with one card each where there are n) and
+one data-parallel train step on each for five families at tiny shapes:
+the ViT captioner, the Transformer captioner and the attention-LSTM over
+a ResNet trunk (BatchNorm's statistics over the global batch), the GT
+dense step (VGG trunk → ROI pooling → LSTM head) and the full RPN step
+(anchors → sampler → ROI pooling → the five losses). It prints the JAX
+package's line with `mesh={'data': n}` and the global losses. The JAX
+dry run also splits the transformer weights over a `'model'` axis; that
+split is the tensor-parallel slice, not ported, and the line says so.
+
+  python -m imagecaptioning_tpu_torch.dryrun [multichip [n]]
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import tempfile
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+
+def entry(device=None, **overrides):
+    """(fn, (model, images, gt)): `fn(model, images, gt)` is the eval-mode
+    caption loss of the ViT-B/16 captioner (vocabulary 512, 16 tokens,
+    batch 4, bf16, seeded weights). `overrides` replace config fields
+    (e.g. `vit_dims` and widths, to shrink it)."""
+    from imagecaptioning_tpu_torch.config.configs import get_vitb_config
+    from imagecaptioning_tpu_torch.models.api import make_forward_fn
+    from imagecaptioning_tpu_torch.models.captioners import build_model
+    from imagecaptioning_tpu_torch.utils.platform import resolve_device
+    from imagecaptioning_tpu_torch.utils.weights import seeded_init_
+
+    dev = resolve_device(device)
+    b, t, v = 4, 16, 512
+    cfg = get_vitb_config().replace(**{
+        "embedding_size": 768, "num_layers": 6, "num_heads": 8,
+        "use_dropout": False, "compute_dtype": "bfloat16", **overrides})
+    model = seeded_init_(build_model(cfg, v, t, device=dev), 0).eval()
+    size = cfg.vit_dims[0] if cfg.vit_dims else 224
+    gen = torch.Generator(dev).manual_seed(0)
+    images = torch.rand((b, size, size, 3), generator=gen, device=dev)
+    gt = torch.randint(1, v + 1, (b, t), generator=gen, device=dev)
+    forward = make_forward_fn(model)
+
+    @torch.no_grad()
+    def fn(model, images, gt):
+        return forward(images, gt, train=False)[0]
+    return fn, (model, images, gt)
+
+
+# ----------------------------------------------------- one rank's steps
+
+def _captioner_loss(mesh, dev, cfg, images, gt) -> float:
+    """One data-parallel train step of a captioner family → its loss."""
+    from imagecaptioning_tpu_torch.models.captioners import build_model
+    from imagecaptioning_tpu_torch.train import optim
+    from imagecaptioning_tpu_torch.train.step import make_train_step
+    from imagecaptioning_tpu_torch.utils.weights import seeded_init_
+
+    model = seeded_init_(build_model(cfg, 64, gt.shape[1], device=dev), 0)
+    opt = optim.make_optimizer(cfg, model, 100)
+    gen = torch.Generator(dev).manual_seed(cfg.seed + 1)
+    step = make_train_step(model, opt, gen, clip_norm=cfg.grad_clip_norm,
+                           dp=mesh.data)
+    rows = mesh.data.rows(images.shape[0])
+    out = step(torch.from_numpy(images[rows]).to(dev),
+               torch.from_numpy(gt[rows]).to(dev))
+    return float(out["loss"])
+
+
+def _dense_inputs(b, r, v, t, labels_below):
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, size=(b, 64, 64, 3), dtype=np.uint8)
+    wh = rng.uniform(8, 24, size=(b, r, 2))
+    cxy = rng.uniform(16, 48, size=(b, r, 2))
+    boxes = np.concatenate([cxy, wh], -1).astype(np.float32)
+    labels = rng.randint(1, labels_below, size=(b, r, t)).astype(np.int64)
+    return images, boxes, labels, np.ones((b, r), np.float32)
+
+
+def _dense_loss(mesh, dev, kind: str, n: int) -> float:
+    """One data-parallel GT dense ("gt") or RPN ("rpn") step at batch n."""
+    from imagecaptioning_tpu_torch.config.dense_configs import (
+        get_densecap_config, get_gt_config)
+    from imagecaptioning_tpu_torch.train import dense_driver as dd
+    from imagecaptioning_tpu_torch.utils.weights import seeded_init_
+
+    b, r, v, t = n, 3, 32, 6
+    base = get_gt_config() if kind == "gt" else get_densecap_config()
+    cfg = base.replace(batch_size=b, max_regions=r, use_lstm=True,
+                       rnn_size=32, input_encoding_size=32, vgg_stages=2,
+                       sampler_batch_size=16, compute_dtype="float32")
+    build = dd.build_gt_model if kind == "gt" else dd.build_rpn_model
+    model = seeded_init_(build(cfg, v, t, dev), 0)
+    opt = dd.make_dense_optimizer(cfg, model, 10)
+    gen = torch.Generator(dev).manual_seed(cfg.seed + 1)
+    images, boxes, labels, mask = _dense_inputs(
+        b, r, v, t, v + 1 if kind == "gt" else v - 2)
+    rows = mesh.data.rows(b)
+    x, bx, lb, m = (torch.from_numpy(a[rows]).to(dev)
+                    for a in (images, boxes, labels, mask))
+    if kind == "gt":
+        step = dd.make_gt_train_step(model, opt, False, gen, mesh.data)
+        return float(step(x, bx, lb, m, 1.0))
+    step = dd.make_rpn_train_step(model, opt, gen, mesh.data)
+    losses = step(x, bx, m, lb)
+    if not all(np.isfinite(float(val)) for val in losses.values()):
+        raise FloatingPointError(f"rpn losses {losses}")
+    return float(losses["captioning"])
+
+
+def _rank_main(n: int, init_method: str, device: str) -> None:
+    """One rank of `dryrun_multichip`: the five families' steps; rank 0
+    prints the line."""
+    from imagecaptioning_tpu_torch.config.configs import (
+        get_lstm_attention_config, get_transformer_config, get_vitb_config)
+    from imagecaptioning_tpu_torch.parallel import mesh as meshlib
+
+    dev = meshlib.init_distributed(device, init_method=init_method)
+    try:
+        b, t, v = n * 2, 8, 64
+        mesh = meshlib.mesh_for_batch(b, (-1,), ("data",), dev)
+        rng = np.random.RandomState(0)
+        gt = rng.randint(1, v + 1, size=(b, t)).astype(np.int64)
+        common = dict(batch_size=b, clip_grad=True, use_dropout=True,
+                      drop_value=0.1, compute_dtype="float32")
+        vit_imgs = rng.rand(b, 32, 32, 3).astype(np.float32)
+        cnn_imgs = rng.rand(b, 64, 64, 3).astype(np.float32)
+        losses: Dict[str, float] = {}
+        losses["vitb"] = _captioner_loss(mesh, dev, get_vitb_config().replace(
+            embedding_size=32, num_layers=2, num_heads=4,
+            vit_dims=(32, 16, 2, 4, 32, 64), **common), vit_imgs, gt)
+        losses["transformer"] = _captioner_loss(
+            mesh, dev, get_transformer_config().replace(
+                transformer_size=32, num_layers=2, num_heads=4,
+                backbone_stages=(1, 1, 1, 1), **common), cnn_imgs, gt)
+        losses["attention_lstm"] = _captioner_loss(
+            mesh, dev, get_lstm_attention_config().replace(
+                embedding_size=32, lstm_size=32,
+                backbone_stages=(1, 1, 1, 1), **common), cnn_imgs, gt)
+        losses["gt_dense"] = _dense_loss(mesh, dev, "gt", n)
+        losses["rpn"] = _dense_loss(mesh, dev, "rpn", n)
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise FloatingPointError(f"dryrun losses {losses}")
+        if meshlib.is_writer():
+            print(f"dryrun_multichip({n}): mesh={mesh.shape} "
+                  + " ".join(f"{k}_loss={val:.4f}" for k, val in
+                             losses.items())
+                  + " model_split=not-ported (the tensor-parallel slice) OK",
+                  flush=True)
+    finally:
+        meshlib.shutdown()
+
+
+def dryrun_multichip(n_devices: int, timeout: float = 600.0,
+                     device: Optional[str] = None) -> str:
+    """Run `_rank_main` in `n_devices` processes → rank 0's line (also
+    printed). `device` None: one card each where there are that many,
+    else the CPU. Raises if a process fails."""
+    if device is None:
+        device = ("cuda" if torch.cuda.is_available()
+                  and torch.cuda.device_count() >= n_devices else "cpu")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{os.path.join(tmp, 'rendezvous')}"
+        procs = []
+        for rank in range(n_devices):
+            env = {"OMP_NUM_THREADS": "2", **os.environ, "RANK": str(rank),
+                   "WORLD_SIZE": str(n_devices), "LOCAL_RANK": str(rank),
+                   "PYTHONPATH": os.pathsep.join(
+                       [root, os.environ.get("PYTHONPATH", "")])}
+            dev = f"cuda:{rank}" if device == "cuda" else device
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "imagecaptioning_tpu_torch.dryrun",
+                 "rank", str(n_devices), init, dev],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=timeout))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    failed = [(r, p.returncode, err[-2000:])
+              for r, (p, (_, err)) in enumerate(zip(procs, outs))
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"dryrun_multichip({n_devices}) failed: {failed}")
+    line = outs[0][0].strip().splitlines()[-1]
+    print(line)
+    return line
+
+
+if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "rank":
+        _rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    elif len(sys.argv) > 1 and sys.argv[1] == "multichip":
+        dryrun_multichip(int(sys.argv[2]) if len(sys.argv) > 2 else 2)
+    else:
+        fn, args = entry()
+        print("entry() ran; loss =", float(fn(*args)))

@@ -23,7 +23,11 @@ BatchNorm is flax's `BatchNorm(momentum=0.9, epsilon=1e-5)`:
   batch`, the biased variance included (torch's own update takes the
   unbiased one, so the port rescales torch's share of the update).
 The statistics and the normalisation are fp32 (fp64 for fp64 input); the
-output is in the input's dtype.
+output is in the input's dtype. In a data-parallel step the training
+statistics are the global batch's, as under GSPMD: two sums over the data
+ranks (`parallel.mesh.batch_norm_train`) that autograd reduces back, and
+the running statistics move by the global batch's mean and biased
+variance, the same on every rank.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from imagecaptioning_tpu_torch.parallel import mesh
 
 BN_MOMENTUM = 0.9     # flax's: the weight of the running statistics
 BN_EPS = 1e-5
@@ -50,6 +56,17 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        dp = mesh.current()
+        if dp.size > 1:
+            out, mean, var = mesh.batch_norm_train(x, self.weight, self.bias,
+                                                   self.eps, dp)
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                        self.momentum)
+                self.running_var.lerp_(var.to(self.running_var.dtype),
+                                       self.momentum)
+                self.num_batches_tracked.add_(1)
+            return out
         # torch moves running_var by the unbiased variance v·n/(n-1);
         # rescale its share of the update (C values) rather than reduce
         # the activations a second time: rv = m·rv0 + (rv' − m·rv0)·(n−1)/n.

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imagecaptioning_tpu_torch.parallel import mesh
+
 # (out_channels per conv) per stage; maxpool after each stage.
 VGG16_STAGES: Sequence[Sequence[int]] = (
     (64, 64), (128, 128), (256, 256, 256), (512, 512, 512), (512, 512, 512))
@@ -90,8 +92,7 @@ class VGGClassifierHead(nn.Sequential):
                             fc6.bias.to(dtype)), inplace=True)
         if train and drop.p > 0:
             keep = 1.0 - drop.p
-            mask = torch.bernoulli(torch.full_like(x, keep),
-                                   generator=generator)
+            mask = mesh.current().bernoulli(x, keep, generator)
             x = x * mask / keep
         return F.relu(F.linear(x, fc7.weight.to(dtype), fc7.bias.to(dtype)),
                       inplace=True)

@@ -54,6 +54,7 @@ from imagecaptioning_tpu_torch.ops.box_sampler import (SampleResult,
                                                        sample_boxes)
 from imagecaptioning_tpu_torch.ops.nms import nms
 from imagecaptioning_tpu_torch.ops.roi_align import roi_align_batch_chw
+from imagecaptioning_tpu_torch.parallel import mesh
 
 
 class GTDenseOutput(NamedTuple):
@@ -150,8 +151,8 @@ class GTDenseCaptioner(nn.Module):
         logits_list = []
         prev_model_tok = dec_in[:, 0]
         for t in range(t1):
-            use_teacher = torch.rand(b, generator=generator,
-                                     device=dec_in.device) < teacher_prob
+            use_teacher = mesh.current().rand(
+                (b,), generator=generator, device=dec_in.device) < teacher_prob
             tok = (dec_in[:, t] if t == 0 else
                    torch.where(use_teacher, dec_in[:, t], prev_model_tok))
             logits, state = self.llm.step(tok[:, None], state)
@@ -404,9 +405,10 @@ class DenseCapRPN(nn.Module):
                   generator: Optional[torch.Generator] = None,
                   device=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """The sampler's uniform keys (positives', negatives'), each (n, A),
-        from `generator`."""
-        keys = torch.rand((2, n, num_anchors), generator=generator,
-                          device=device)
+        from `generator` (this rank's rows of the global batch's keys in a
+        data-parallel step)."""
+        keys = mesh.current().rand((2, n, num_anchors), generator=generator,
+                                   device=device, batch_axis=1)
         return keys[0], keys[1]
 
     def sample_regions(self, rpn: RPNOutput, gt_boxes: torch.Tensor,
@@ -468,10 +470,13 @@ class DenseCapRPN(nn.Module):
             boxlib.invert_box_transform(pos_boxes, pos_targets),
             valid_mask=s.pos_mask)
 
-        terms = {"mid_objectness": mid_obj.mean(),
-                 "mid_box_reg": mid_reg.mean(),
-                 "end_objectness": end_obj.mean(),
-                 "end_box_reg": end_reg.mean()}
+        # means over the global batch (this rank's part in a data-parallel
+        # step); box_decay is a sum, whose part is the local sum
+        dp = mesh.current()
+        terms = {"mid_objectness": dp.mean(mid_obj),
+                 "mid_box_reg": dp.mean(mid_reg),
+                 "end_objectness": dp.mean(end_obj),
+                 "end_box_reg": dp.mean(end_reg)}
         if self.with_captioning:
             terms["captioning"] = self._caption_loss(
                 pos_codes, _take(gt_labels, s.pos_target_idx), s.pos_mask,
@@ -482,7 +487,7 @@ class DenseCapRPN(nn.Module):
                             * rpn.trans.float().square().sum())
         if self.apply_box_decay:
             out["total"] = out["total"] + out["box_decay"]
-        out["pos_occupancy"] = s.pos_mask.float().mean()
+        out["pos_occupancy"] = dp.mean(s.pos_mask.float())
         return out
 
     def _caption_loss(self, pos_codes, pos_labels, pos_mask, train,

@@ -39,6 +39,7 @@ from torch import nn
 
 from imagecaptioning_tpu_torch.ops.rnn import LSTM, LSTMState, lstm_gates_step
 from imagecaptioning_tpu_torch.ops.transformer import Decoder, Encoder, dropout
+from imagecaptioning_tpu_torch.parallel import mesh
 
 
 class LanguageHead(nn.Module):
@@ -76,8 +77,8 @@ class LanguageHead(nn.Module):
         train = self.training if train is None else train
         if train and self.out_drop > 0:
             keep = 1.0 - self.out_drop
-            out = out * torch.bernoulli(torch.full_like(out, keep),
-                                        generator=generator) / keep
+            out = out * mesh.current().bernoulli(out, keep,
+                                                 generator) / keep
         return self.rnn["linear"](out)
 
     def init_state(self, image_vectors: torch.Tensor) -> LSTMState:

@@ -22,6 +22,12 @@ behaviour-compatible with the reference's criteria:
 All compute in fp32 whatever the inputs' dtype. Softplus is written as
 `logaddexp(x, 0)`, which is `jax.nn.softplus`: `F.softplus` turns into
 the identity above 20.
+
+Every mean is over the global batch: inside a data-parallel step
+(`parallel/mesh.py`) a rank holds a share of the batch, its loss is its
+part (the local sum over the global denominator, `mesh.current()`), and
+the parts sum to the one-process loss over the ranks. At one process the
+reducer is the identity and each expression is the plain one.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from imagecaptioning_tpu_torch.parallel import mesh
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -49,7 +57,8 @@ def smoothed_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     smooth = -logp.mean(dim=-1)
     per = (1.0 - label_smoothing) * nll + label_smoothing * smooth
     mask = (t != ignore_index).float()
-    return (per * mask).sum() / mask.sum().clamp_min(1.0)
+    return (per * mask).sum() / mesh.current().all_sum(
+        mask.sum()).clamp_min(1.0)
 
 
 def temporal_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -59,7 +68,8 @@ def temporal_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, targets[..., None].long())[..., 0]
     mask = (targets != null_token).float()
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return (nll * mask).sum() / mesh.current().all_sum(
+        mask.sum()).clamp_min(1.0)
 
 
 def sum_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -72,7 +82,8 @@ def sum_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     t = targets.reshape(-1).long()
     nll = -logp.gather(-1, t[:, None])[:, 0]
     mask = (t != null_token).float()
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return (nll * mask).sum() / mesh.current().all_sum(
+        mask.sum()).clamp_min(1.0)
 
 
 def temporal_sum_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -87,7 +98,7 @@ def temporal_sum_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     nll = -logp.gather(-1, targets[..., None].long())[..., 0]
     total = torch.where(targets != null_token, nll, 0.0).sum()
     if batch_average:
-        total = total / n
+        total = total / mesh.current().count(n)
     if time_average:
         total = total / t
     return total
@@ -103,10 +114,11 @@ def log_softmax_nll(logits: torch.Tensor, targets: torch.Tensor,
     logp = torch.log_softmax(logits.float().reshape(-1, c), dim=-1)
     t = targets.reshape(-1).long()
     nll = -logp.gather(-1, t[:, None])[:, 0]
+    dp = mesh.current()
     if weights is None:
-        return nll.mean()
+        return dp.mean(nll)
     w = weights.float()[t]
-    return (nll * w).sum() / w.sum().clamp_min(1e-12)
+    return (nll * w).sum() / dp.all_sum(w.sum()).clamp_min(1e-12)
 
 
 def doubly_stochastic_regularizer(alphas: torch.Tensor) -> torch.Tensor:
@@ -114,7 +126,7 @@ def doubly_stochastic_regularizer(alphas: torch.Tensor) -> torch.Tensor:
     (B, T, P), in fp32 (fp64 for fp64 alphas): attention mass near 1 at
     every position over the caption."""
     a = alphas.to(torch.promote_types(alphas.dtype, torch.float32))
-    return ((1.0 - a.sum(dim=1)) ** 2).mean()
+    return mesh.current().mean((1.0 - a.sum(dim=1)) ** 2)
 
 
 def logistic_criterion(scores: torch.Tensor,
@@ -123,7 +135,7 @@ def logistic_criterion(scores: torch.Tensor,
     sigmoid BCE, stable."""
     s = scores.float().reshape(-1)
     y = 2.0 * labels.float().reshape(-1) - 1.0
-    return softplus(-y * s).mean()
+    return mesh.current().mean(softplus(-y * s))
 
 
 def smooth_l1(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:

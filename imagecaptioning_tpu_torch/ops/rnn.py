@@ -14,6 +14,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from imagecaptioning_tpu_torch.parallel import mesh
+
 LSTMState = Tuple[torch.Tensor, torch.Tensor]  # (h, c) each (L, B, H)
 
 
@@ -96,8 +98,7 @@ class LSTM(nn.Module):
                         w_ih, w_hh, b_ih, b_hh, inp, hs[layer], cs[layer])
                 inp = hs[layer]
                 if use_drop and layer < self.num_layers - 1:
-                    mask = torch.bernoulli(torch.full_like(inp, keep),
-                                           generator=generator)
+                    mask = mesh.current().bernoulli(inp, keep, generator)
                     inp = inp * mask / keep
             ys.append(inp)
         return torch.stack(ys, dim=1), (torch.stack(hs), torch.stack(cs))

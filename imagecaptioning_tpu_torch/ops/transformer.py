@@ -42,6 +42,8 @@ from typing import Callable, List, Optional, Tuple
 import torch
 from torch import nn
 
+from imagecaptioning_tpu_torch.parallel import mesh
+
 NEG_INF = -1e20
 LN_EPS = 1e-6
 KV = Tuple[torch.Tensor, torch.Tensor]
@@ -62,7 +64,7 @@ def dropout(x: torch.Tensor, p: float, train: bool,
     if not train or p <= 0:
         return x
     keep = 1.0 - p
-    mask = torch.bernoulli(torch.full_like(x, keep), generator=generator)
+    mask = mesh.current().bernoulli(x, keep, generator)
     return x * mask / keep
 
 

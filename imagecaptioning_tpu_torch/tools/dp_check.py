@@ -1,0 +1,264 @@
+"""One rank of a data-parallel check: the train steps of a list of cases
+on this rank's rows of each global batch → what they computed, as `.npz`.
+
+  RANK=r WORLD_SIZE=n python -m imagecaptioning_tpu_torch.tools.dp_check \\
+      SPEC OUT_DIR INIT_METHOD
+
+SPEC is a `torch.save`d list of cases (`run_case` says what a case
+holds); each rank writes `OUT_DIR/<case>_w<n>_r<rank>.npz` (`compact`:
+a tensor of more than `FULL_LIMIT` elements as two fixed random
+projections), rank 0 the gradients and weights, the others a digest of
+each (its fp64 sum and sum of squares, equal on every rank). A world of 1
+gives the one-process reference (its reducer is the identity), so a
+caller can hold a world of n against it: the losses and gradients are
+global on every rank, the draws and the sampled indices are this rank's
+rows. It runs on the CPU (gloo) and imports nothing but the port.
+"""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from imagecaptioning_tpu_torch.config import configs, dense_configs
+from imagecaptioning_tpu_torch.models.captioners import build_model
+from imagecaptioning_tpu_torch.parallel import mesh as meshlib
+from imagecaptioning_tpu_torch.train import dense_driver as dd
+from imagecaptioning_tpu_torch.train import optim
+from imagecaptioning_tpu_torch.train.step import make_train_step
+from imagecaptioning_tpu_torch.utils.weights import seeded_init_
+
+
+class _Recorder:
+    """Wraps a `DataParallel`'s draws and an optimizer's `accumulate` to
+    keep each draw (this rank's rows, with its batch axis) and each
+    applied update's gradients (summed over the ranks, before the clip)."""
+
+    def __init__(self, dp: meshlib.DataParallel, model, optimizer):
+        self.draws: List[tuple] = []
+        self.grads: List[Dict[str, np.ndarray]] = []
+        rand, bernoulli, accumulate = (dp.rand, dp.bernoulli,
+                                       optimizer.accumulate)
+
+        def rec_rand(shape, generator=None, device=None, batch_axis=0):
+            out = rand(shape, generator, device, batch_axis)
+            self.draws.append((out.clone(), batch_axis))
+            return out
+
+        def rec_bernoulli(like, keep, generator=None, batch_axis=0):
+            out = bernoulli(like, keep, generator, batch_axis)
+            self.draws.append((out.clone(), batch_axis))
+            return out
+
+        def rec_accumulate():
+            done = accumulate()
+            if done:
+                self.grads.append({n: p.grad.detach().clone().numpy()
+                                   for n, p in model.named_parameters()
+                                   if p.grad is not None})
+            return done
+        dp.rand, dp.bernoulli = rec_rand, rec_bernoulli
+        optimizer.accumulate = rec_accumulate
+
+
+def _config(case):
+    if case["kind"] == "alexcap":
+        return configs.CaptionConfig(**case["cfg"])
+    return dense_configs.DenseConfig(**case["cfg"])
+
+
+@torch.no_grad()
+def perturb_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Move the norms' scales and biases, BatchNorm's running statistics
+    and the ViT's class token off their init (so that a check sees them)."""
+    gen = torch.Generator().manual_seed(seed)
+    norms = (torch.nn.LayerNorm, torch.nn.modules.batchnorm._BatchNorm)
+    for m in model.modules():
+        if isinstance(m, norms):
+            m.weight.uniform_(0.5, 1.5, generator=gen)
+            m.bias.normal_(0, 0.1, generator=gen)
+        if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+            m.running_mean.normal_(0, 0.1, generator=gen)
+            m.running_var.uniform_(0.5, 1.5, generator=gen)
+        if hasattr(m, "class_token"):
+            m.class_token.normal_(0, 0.1, generator=gen)
+    return model
+
+
+@torch.no_grad()
+def initial_model(case: Dict) -> torch.nn.Module:
+    """The case's model from `case["seed"]`: `seeded_init_`, then the
+    AlexCap models' norms perturbed (`perturb_`) and the RPN's box heads
+    moved off their zero init, so that the proposals move."""
+    cfg = _config(case)
+    dev = torch.device("cpu")
+    if case["kind"] == "alexcap":
+        model = build_model(cfg, case["vocab"], case["seq"], device=dev)
+    elif case["kind"] == "gt":
+        model = dd.build_gt_model(cfg, case["vocab"], case["seq"], dev)
+    else:
+        model = dd.build_rpn_model(cfg, case["vocab"], case["seq"], dev)
+    seeded_init_(model, case["seed"])
+    if case["kind"] == "alexcap":
+        perturb_(model, case["seed"] + 1)
+    elif case["kind"] == "rpn":
+        gen = torch.Generator().manual_seed(case["seed"] + 1)
+        for m, scale in ((model.rpn_trans, 0.05), (model.box_reg, 0.01)):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                           * scale)
+    return model
+
+
+def run_case(case: Dict, dp: meshlib.DataParallel) -> Dict[str, np.ndarray]:
+    """The case's steps on `dp`'s rows → {name: array}. A case holds:
+    `kind` ("alexcap", "gt" or "rpn"), `cfg` (the config's fields),
+    `vocab`, `seq`, `seed` (`initial_model`), `batches` (the global batch
+    of each step: "images", "gt" for AlexCap; "images", "boxes",
+    "labels", "mask" for the dense models), and optionally
+    `frozen_until` (AlexCap: the steps with the encoder frozen),
+    `teacher_prob` (GT, with `use_curriculum_learning`), `keys` (RPN: the
+    sampler's global (positives', negatives') keys of each step),
+    `no_dropout` (the VGG classifier's dropout off, as in eval mode),
+    `f64` (the model and the images in fp64) and, read by `main`, `mesh`
+    (the mesh's shape and axis names, default all ranks on 'data')."""
+    cfg = _config(case)
+    # a reducer of its own: the recorder wraps its draws
+    dp = meshlib.DataParallel(dp.index, dp.size, dp.group, dp.stage_on_host)
+    model = initial_model(case)
+    if case.get("f64"):
+        model.double()
+        for m in model.modules():
+            if getattr(m, "compute_dtype", None) is not None:
+                m.compute_dtype = torch.float64
+    if case.get("no_dropout"):
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+    if case["kind"] == "alexcap":
+        opt = optim.make_optimizer(cfg, model, case.get("total_steps", 8))
+    else:
+        opt = dd.make_dense_optimizer(cfg, model,
+                                      case.get("finetune_start", 10))
+    gen = torch.Generator().manual_seed(cfg.seed + 1)
+    rec = _Recorder(dp, model, opt)
+    out: Dict[str, np.ndarray] = {}
+    if case["kind"] == "alexcap":
+        step = make_train_step(
+            model, opt, gen,
+            clip_norm=cfg.grad_clip_norm if cfg.clip_grad else None, dp=dp)
+    elif case["kind"] == "gt":
+        step = dd.make_gt_train_step(model, opt, cfg.use_curriculum_learning,
+                                     gen, dp)
+    else:
+        step = dd.make_rpn_train_step(model, opt, gen, dp)
+        sample = model.sample_regions
+        samples = []
+
+        def rec_sample(*a, **kw):
+            s = sample(*a, **kw)
+            samples.append((s.pos_idx.clone(), s.neg_idx.clone()))
+            return s
+        model.sample_regions = rec_sample
+    for i, batch in enumerate(case["batches"]):
+        n = batch["images"].shape[0]
+        rows = dp.rows(n)
+        local = {k: (v[rows].double() if case.get("f64")
+                     and v.is_floating_point() else v[rows])
+                 for k, v in batch.items()}
+        if case["kind"] == "alexcap":
+            if "frozen_until" in case:
+                model.freeze_encoder = i < case["frozen_until"]
+            got = step(local["images"], local["gt"])
+            out[f"loss/{i}"] = got["loss"].numpy()
+            out[f"gnorm/{i}"] = got["grad_norm"].numpy()
+        elif case["kind"] == "gt":
+            got = step(local["images"], local["boxes"], local["labels"],
+                       local["mask"], case.get("teacher_prob", 1.0))
+            out[f"loss/{i}"] = got.numpy()
+        else:
+            keys = case.get("keys")
+            keys = (None if keys is None else
+                    tuple(k[rows] for k in keys[i]))
+            got = step(local["images"], local["boxes"], local["mask"],
+                       local["labels"], keys)
+            for k, v in got.items():
+                out[f"loss/{i}/{k}"] = v.numpy()
+    for name, t in model.state_dict().items():
+        out[f"state/{name}"] = t.detach().numpy()
+    for u, grads in enumerate(rec.grads):
+        for name, g in grads.items():
+            out[f"grad/{u}/{name}"] = g
+    for j, (d, axis) in enumerate(rec.draws):
+        out[f"draw/{j}"] = d.numpy()
+        out[f"draw_axis/{j}"] = np.asarray(axis)
+    if case["kind"] == "rpn":
+        for i, (pos, neg) in enumerate(samples):
+            out[f"sample/{i}/pos"] = pos.numpy()
+            out[f"sample/{i}/neg"] = neg.numpy()
+    return out
+
+
+# larger tensors (the VGG classifier's fc6 and fc7, most of ResNet's
+# convolutions) travel as projections
+FULL_LIMIT = 1 << 16
+KEPT = ("grad/", "state/", "proj/")
+
+
+def projection_vectors(shape) -> tuple:
+    """The fixed N(0, 1) vectors (over the trailing elements, over the
+    leading axis) that `compact` projects a tensor of `shape` on."""
+    rows, cols = shape[0], int(np.prod(shape[1:]))
+    rng = np.random.RandomState(rows * 7919 + cols)
+    return rng.randn(cols), rng.randn(rows)
+
+
+def compact(out: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """`out` with each gradient or weight of more than `FULL_LIMIT`
+    elements replaced by `proj/<key>/rows` (the tensor, flattened to
+    (leading, rest), times the first vector) and `proj/<key>/cols` (the
+    second vector times it), in fp64."""
+    res = {}
+    for k, v in out.items():
+        if k.startswith(("grad/", "state/")) and v.size > FULL_LIMIT:
+            a = np.ascontiguousarray(v, np.float64).reshape(v.shape[0], -1)
+            u, w = projection_vectors(v.shape)
+            res[f"proj/{k}/rows"], res[f"proj/{k}/cols"] = a @ u, w @ a
+        else:
+            res[k] = v
+    return res
+
+
+def digest(out: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The gradients, weights and projections of `out` each as (fp64 sum,
+    sum of squares); the rest as they are."""
+    def two(v):
+        v = np.ascontiguousarray(v, np.float64)
+        return np.array([v.sum(), np.square(v).sum()])
+    return {(f"digest/{k}" if k.startswith(KEPT) else k):
+            (two(v) if k.startswith(KEPT) else v) for k, v in out.items()}
+
+
+def main(argv=None) -> None:
+    spec, out_dir, init_method = (argv or sys.argv[1:])[:3]
+    meshlib.init_distributed("cpu", init_method=init_method)
+    try:
+        rank = torch.distributed.get_rank()
+        world = torch.distributed.get_world_size()
+        meshes = {}
+        for case in torch.load(spec, weights_only=True):
+            layout = tuple(map(tuple, case.get("mesh", ((-1,), ("data",)))))
+            if layout not in meshes:
+                meshes[layout] = meshlib.create_mesh(*layout)
+            got = compact(run_case(case, meshes[layout].data))
+            np.savez(Path(out_dir) / f"{case['name']}_w{world}_r{rank}.npz",
+                     **(got if rank == 0 else digest(got)))
+    finally:
+        meshlib.shutdown()
+
+
+if __name__ == "__main__":
+    main()

@@ -2,6 +2,7 @@
 
     python imagecaptioning_tpu_torch/tools/smoke_timings.py [--tree .]
     python imagecaptioning_tpu_torch/tools/smoke_timings.py --phases 25,26
+    python imagecaptioning_tpu_torch/tools/smoke_timings.py --phases 27
 
 The first form runs `<tree>/chip_smoke.py`'s `main()` with every function
 defined at the top of that script wrapped in a timer, and prints, after
@@ -10,8 +11,9 @@ inclusive seconds (a nested call counts in both) and its number of calls,
 the largest first. The script's own `phase_seconds` give each group of
 phases; these split them (e.g. the profiler's `profiled` over all its
 sites). The second form builds the kernels and runs only the named
-phases of the trainers' evals (24), `evidence_run` (25) and checkpoint
-interchange (26), each timed, and prints `PHASES {json}`. Run it as a
+phases of the trainers' evals (24), `evidence_run` (25), checkpoint
+interchange (26) and data-parallel training (27), each timed, and prints
+`PHASES {json}`. Run it as a
 file, so that `<tree>`'s package is imported.
 """
 
@@ -53,8 +55,9 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--tree", default=".", help="the checkout to time")
     p.add_argument("--phases", default="",
-                   help="'24,25,26' or a part: only the trainers' evals, "
-                        "evidence_run, checkpoint interchange")
+                   help="'24,25,26,27' or a part: only the trainers' "
+                        "evals, evidence_run, checkpoint interchange, "
+                        "data-parallel training")
     args = p.parse_args()
     tree = os.path.abspath(args.tree)
     os.chdir(tree)
@@ -87,7 +90,7 @@ def main() -> int:
     seconds = {"build": time.perf_counter() - t0}
     dev, out = torch.device("cuda:0"), Path("build/chip_smoke")
     phases = {"24": cs.trainer_evals, "25": cs.evidence_runs,
-              "26": cs.checkpoint_interchange}
+              "26": cs.checkpoint_interchange, "27": cs.dp_training}
     for name in args.phases.split(","):
         t0 = time.perf_counter()
         phases[name](dev, roi, out, card=torch.cuda.get_device_name(0))

@@ -7,8 +7,12 @@ JAX package, every config field takes a `--set KEY=VALUE` override, and:
   --synthetic    the synthetic dataset even where the HDF5 exists
   --synthetic-learnable  the learnable synthetic dataset (captions
                  derived from the rendered images)
-  --device       the torch device (default: the first CUDA card; `cpu`
-                 runs on the CPU)
+  --device       the torch device (default: the first CUDA card, or the
+                 rank's card under torchrun; `cpu` runs on the CPU)
+
+Under `python -m torch.distributed.run --nproc_per_node=N -m
+imagecaptioning_tpu_torch.train_LSTM ...` each process is a data rank
+(`parallel/mesh.py`: NCCL on the cards, gloo with `--device cpu`).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import sys
 
 from imagecaptioning_tpu_torch.config.configs import (apply_overrides,
                                                       get_config)
+from imagecaptioning_tpu_torch.parallel import mesh as meshlib
 from imagecaptioning_tpu_torch.train.driver import train
 
 
@@ -54,17 +59,19 @@ def main(model_type: str, argv=None) -> dict:
         overrides.setdefault("eval_val_batch_size", "4")
     cfg = apply_overrides(cfg, overrides)
 
-    summary = train(cfg, device=args.device,
-                    max_iter_override=args.max_iter or (8 if args.smoke
-                                                        else None),
-                    eval_every_override=args.eval_every or (4 if args.smoke
+    with meshlib.process_group(args.device):
+        summary = train(cfg, device=args.device,
+                        max_iter_override=args.max_iter or (8 if args.smoke
                                                             else None),
-                    synthetic_images=(args.synthetic_images
-                                      or (32 if args.smoke else 64)),
-                    synthetic_learnable=args.synthetic_learnable)
-    printable = {k: v for k, v in summary.items()
-                 if k not in ("model", "optimizer", "loader")}
-    print(json.dumps(printable, default=str))
+                        eval_every_override=args.eval_every or (
+                            4 if args.smoke else None),
+                        synthetic_images=(args.synthetic_images
+                                          or (32 if args.smoke else 64)),
+                        synthetic_learnable=args.synthetic_learnable)
+        if meshlib.is_writer():
+            printable = {k: v for k, v in summary.items()
+                         if k not in ("model", "optimizer", "loader")}
+            print(json.dumps(printable, default=str))
     return summary
 
 

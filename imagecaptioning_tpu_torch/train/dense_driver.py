@@ -26,6 +26,17 @@ fp32), backpropagates and takes one optimizer update. Dropout masks and
 the RPN sampler's keys come from the trainer's generator. Runs on the
 first CUDA card unless the caller passes `device="cpu"`.
 
+Data-parallel, as the JAX drivers shard their steps over
+`mesh_for_batch(batch_size, mesh_shape, mesh_axis_names)`: under torchrun
+each data rank takes its rows of every batch (the same batch order on
+every rank) and runs the step under `parallel.mesh.active`, so the ROI
+kernels run on its own images, the losses are its parts of the global
+means, the draws are its rows of the global batch's, and the optimizer
+sums the gradients over the ranks once an applied update; the step
+returns the global losses. Rank 0 alone evaluates (over the whole
+split) and writes the histories, TensorBoard and checkpoints while the
+others wait at a barrier; every rank resumes from the same checkpoint.
+
 The knobs, as in the JAX drivers: `grad_accum_steps` = k makes each step
 a micro-step and updates once per k (optax's `MultiSteps`: the mean of
 the k gradients through the group-wise clip and Adam), the encoder's lr
@@ -58,6 +69,7 @@ from imagecaptioning_tpu_torch.models.densecap import (DenseCapRPN,
                                                        GTDenseCaptioner)
 from imagecaptioning_tpu_torch.ops import boxes as boxlib
 from imagecaptioning_tpu_torch.ops.box_sampler import candidate_masks
+from imagecaptioning_tpu_torch.parallel import mesh as meshlib
 from imagecaptioning_tpu_torch.train.optim import (Accumulating,
                                                    applied_updates)
 from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
@@ -221,44 +233,59 @@ def build_rpn_model(cfg: DenseConfig, vocab_size: int, seq_length: int,
 
 
 def make_gt_train_step(model: GTDenseCaptioner, optimizer: DenseAdam,
-                       use_curriculum: bool, generator: torch.Generator):
+                       use_curriculum: bool, generator: torch.Generator,
+                       dp: Optional[meshlib.DataParallel] = None):
     """One step: (uint8 images (N, S, S, 3), boxes (N, R, 4), labels
     (N, R, T) long, box mask (N, R), teacher_prob) on the model's device
     → the captioning loss (a 0-d tensor, not synchronised); an update at
     the end of each accumulation window. Dropout and scheduled sampling
-    draw from `generator`."""
+    draw from `generator`. With `dp` the inputs are this rank's rows of
+    the global batch and the loss is the global one."""
+    dp = dp or meshlib.IDENTITY
+
     def train_step(images_u8, boxes, labels, mask, teacher_prob):
-        x = normalize_images(images_u8, dtype=model.compute_dtype)
-        out = model(x, boxes, labels, train=True,
-                    teacher_prob=teacher_prob if use_curriculum else None,
-                    generator=generator)
-        loss = model.loss(out, labels, mask)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if optimizer.accumulate():
-            optimizer.step()
-        return loss.detach()
+        with meshlib.active(dp):
+            x = normalize_images(images_u8, dtype=model.compute_dtype)
+            out = model(x, boxes, labels, train=True,
+                        teacher_prob=teacher_prob if use_curriculum else None,
+                        generator=generator)
+            loss = model.loss(out, labels, mask)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if optimizer.accumulate():
+                optimizer.step()
+        return dp.all_sum(loss.detach())
     return train_step
 
 
 def make_rpn_train_step(model: DenseCapRPN, optimizer: DenseAdam,
-                        generator: torch.Generator):
+                        generator: torch.Generator,
+                        dp: Optional[meshlib.DataParallel] = None):
     """One step: (uint8 images (N, S, S, 3), GT boxes (N, M, 4), box
     mask (N, M), labels (N, M, T) long) on the model's device → the loss
     dict (0-d tensors, not synchronised), the gradient taken of `total`;
     an update at the end of each accumulation window.
     The dropout masks draw from `generator`, and so do the sampler's keys
     unless they are given (`keys`, as `DenseCapRPN.forward` takes
-    them)."""
+    them; this rank's rows of them with `dp`). With `dp` the inputs are
+    this rank's rows of the global batch and the losses the global ones
+    (one reduction of the stacked dict)."""
+    dp = dp or meshlib.IDENTITY
+
     def train_step(images_u8, boxes, mask, labels, keys=None):
-        x = normalize_images(images_u8, dtype=model.compute_dtype)
-        losses = model(x, boxes, mask, labels, keys=keys, train=True,
-                       generator=generator)
-        optimizer.zero_grad(set_to_none=True)
-        losses["total"].backward()
-        if optimizer.accumulate():
-            optimizer.step()
-        return {k: v.detach() for k, v in losses.items()}
+        with meshlib.active(dp):
+            x = normalize_images(images_u8, dtype=model.compute_dtype)
+            losses = model(x, boxes, mask, labels, keys=keys, train=True,
+                           generator=generator)
+            optimizer.zero_grad(set_to_none=True)
+            losses["total"].backward()
+            if optimizer.accumulate():
+                optimizer.step()
+        if dp.size == 1:
+            return {k: v.detach() for k, v in losses.items()}
+        summed = dp.all_sum(torch.stack([v.detach().float()
+                                         for v in losses.values()]))
+        return dict(zip(losses, summed.unbind()))
     return train_step
 
 
@@ -273,13 +300,14 @@ def _endless_batches(loader: VGDataLoader, cfg: DenseConfig,
         start_images = 0
 
 
-def to_device(batch: Dict[str, np.ndarray], device: torch.device):
-    """A loader batch → (images u8, boxes, labels long, box mask) on
-    `device`."""
-    return (torch.from_numpy(batch["image"]).to(device),
-            torch.from_numpy(batch["boxes"]).to(device),
-            torch.from_numpy(batch["labels"]).to(device).long(),
-            torch.from_numpy(batch["box_mask"]).to(device))
+def to_device(batch: Dict[str, np.ndarray], device: torch.device,
+              rows: slice = slice(None)):
+    """A loader batch's `rows` (a data rank's; all by default) → (images
+    u8, boxes, labels long, box mask) on `device`."""
+    return (torch.from_numpy(batch["image"][rows]).to(device),
+            torch.from_numpy(batch["boxes"][rows]).to(device),
+            torch.from_numpy(batch["labels"][rows]).to(device).long(),
+            torch.from_numpy(batch["box_mask"][rows]).to(device))
 
 
 def _seeded_model(model: torch.nn.Module, cfg: DenseConfig, trunk: str,
@@ -294,12 +322,18 @@ def _seeded_model(model: torch.nn.Module, cfg: DenseConfig, trunk: str,
     return model
 
 
+def _idle_summary(mesh: meshlib.Mesh, cfg) -> Dict:
+    """A rank beyond `mesh_for_batch`'s cap: it says so and runs nothing."""
+    meshlib.announce_idle(mesh, cfg.batch_size)
+    return {"iters": 0, "idle": True, "mesh": mesh.shape}
+
+
 def _train_loop(cfg: DenseConfig, *, model, optimizer, generator, loader,
                 step: Callable[[Dict, int], Dict[str, float]],
                 evaluate: Callable[[], Dict], save_path: str,
                 loss_file: str, result_file: str, loss_key: str,
                 log_every: int, max_iter: int, eval_every: int,
-                verbose: bool) -> Dict:
+                verbose: bool, mesh: Optional[meshlib.Mesh] = None) -> Dict:
     """The dense drivers' shared loop: resume from the newest full-state
     checkpoint under `save_path` (with `from_checkpoint`); then up to
     `max_iter` steps of `step(batch, it)` → losses, the loss history's
@@ -308,7 +342,12 @@ def _train_loop(cfg: DenseConfig, *, model, optimizer, generator, loader,
     and a preemption checkpoint `<save_path>.preempt` on SIGTERM/SIGINT;
     the losses, the step's ms and the val scores as TensorBoard scalars
     with `tensorboard_dir`, the loop in anomaly mode with `debug_nans`.
-    Returns the summary's common part."""
+    Over a `mesh` of several ranks, rank 0 alone evaluates and writes
+    while the others wait at a barrier, and a signal seen by any rank
+    stops every rank at the same step. Returns the summary's common
+    part."""
+    mesh = mesh or meshlib.single()
+    writer = meshlib.is_writer()
     loss_hist = LossHistory(loss_file, resume=cfg.from_checkpoint)
     res_hist = ResultsHistory(result_file, resume=cfg.from_checkpoint)
     start_iter, start_images = 0, 0
@@ -336,9 +375,10 @@ def _train_loop(cfg: DenseConfig, *, model, optimizer, generator, loader,
         for batch in _endless_batches(loader, cfg, start_images):
             if it >= max_iter:
                 break
-            if sig.requested:
+            if mesh.any(sig.requested):
                 ckptlib.save_checkpoint(save_path + ".preempt", state())
-                if verbose:
+                mesh.barrier()
+                if verbose and writer:
                     print(f"preemption checkpoint written at iter {it}")
                 break
             t0 = time.perf_counter()
@@ -350,10 +390,10 @@ def _train_loop(cfg: DenseConfig, *, model, optimizer, generator, loader,
                 loss_hist.flush()
                 tb.scalars(last, it, prefix="train/")
                 tb.scalar("train/step_ms", step_ms, it)
-                if verbose:
+                if verbose and writer:
                     msg = ", ".join(f"{k} {v:.5f}" for k, v in last.items())
                     print(f"iter {it}/{max_iter} {msg} ({step_ms:.1f} ms)")
-            if it % eval_every == 0 or it == max_iter:
+            if (it % eval_every == 0 or it == max_iter) and writer:
                 results = evaluate()
                 is_best = res_hist.append(it, results,
                                           score_key=("ap_results", "map"))
@@ -366,6 +406,8 @@ def _train_loop(cfg: DenseConfig, *, model, optimizer, generator, loader,
                           f"best={is_best}")
                 if is_best:
                     ckptlib.save_checkpoint(save_path, state())
+            if it % eval_every == 0 or it == max_iter:
+                mesh.barrier()
     loss_hist.flush()         # the file exists for a run shorter than a log
     return {"iters": it, "max_iter": max_iter, "final_losses": last,
             "best_val_score": res_hist.best_score,
@@ -384,6 +426,10 @@ def train_gt(cfg: DenseConfig, *, device=None,
     """The traingt.py loop. Returns a summary with the histories' paths,
     the model, optimizer and loader."""
     dev = resolve_device(device)
+    mesh = meshlib.mesh_for_batch(cfg.batch_size, cfg.mesh_shape,
+                                  cfg.mesh_axis_names, dev)
+    if mesh.idle:
+        return _idle_summary(mesh, cfg)
     loss_file, result_file, save_path = name_gt_model(cfg)
     loader = make_vg_loader(cfg, synthetic_fallback, synthetic_images,
                             synthetic_image_size, synthetic_seq_length,
@@ -400,10 +446,13 @@ def train_gt(cfg: DenseConfig, *, device=None,
     generator = torch.Generator(dev)
     generator.manual_seed(cfg.seed + 1)
     train_step = make_gt_train_step(model, optimizer,
-                                    cfg.use_curriculum_learning, generator)
+                                    cfg.use_curriculum_learning, generator,
+                                    mesh.data)
+    rows = mesh.data.rows(cfg.batch_size)
 
     def step(batch, it):
-        loss = train_step(*to_device(batch, dev), teacher_prob_schedule(it))
+        loss = train_step(*to_device(batch, dev, rows),
+                          teacher_prob_schedule(it))
         return {"captioning_loss": float(loss)}
 
     def evaluate():
@@ -417,7 +466,7 @@ def train_gt(cfg: DenseConfig, *, device=None,
         loss_key="captioning_loss", log_every=cfg.loss_log_pad,
         max_iter=max_iter_override or cfg.max_iters,
         eval_every=eval_every_override or cfg.save_checkpoint_every,
-        verbose=verbose)
+        verbose=verbose, mesh=mesh)
     out["final_loss"] = out["final_losses"].get("captioning_loss",
                                                 float("nan"))
     return out
@@ -530,6 +579,10 @@ def train_rpn(cfg: DenseConfig, *, device=None,
     summary with the last step's losses, the histories' paths, the model,
     optimizer and loader."""
     dev = resolve_device(device)
+    mesh = meshlib.mesh_for_batch(cfg.batch_size, cfg.mesh_shape,
+                                  cfg.mesh_axis_names, dev)
+    if mesh.idle:
+        return _idle_summary(mesh, cfg)
     loader = make_vg_loader(cfg, synthetic_fallback, synthetic_images,
                             synthetic_image_size, synthetic_seq_length,
                             synthetic_learnable)
@@ -541,10 +594,11 @@ def train_rpn(cfg: DenseConfig, *, device=None,
                                     cfg.grad_accum_steps))
     generator = torch.Generator(dev)
     generator.manual_seed(cfg.seed + 1)
-    train_step = make_rpn_train_step(model, optimizer, generator)
+    train_step = make_rpn_train_step(model, optimizer, generator, mesh.data)
+    rows = mesh.data.rows(cfg.batch_size)
 
     def step(batch, it):
-        images, boxes, labels, mask = to_device(batch, dev)
+        images, boxes, labels, mask = to_device(batch, dev, rows)
         losses = train_step(images, boxes, mask, labels)
         return {k: float(v) for k, v in losses.items()}
 
@@ -558,4 +612,4 @@ def train_rpn(cfg: DenseConfig, *, device=None,
         log_every=cfg.losses_log_every,
         max_iter=max_iter_override or cfg.max_iters,
         eval_every=eval_every_override or cfg.save_checkpoint_every,
-        verbose=verbose)
+        verbose=verbose, mesh=mesh)

@@ -33,6 +33,17 @@ uint8 train split on the card, index batches per step) or the streaming
 one (host gather in a prefetch thread, then a copy per batch), chosen by
 `device_resident_data`; both give the same batches in the same order.
 Runs on the first CUDA card unless the caller passes `device="cpu"`.
+
+Data-parallel over `mesh_for_batch(batch_size, mesh_shape,
+mesh_axis_names)` under torchrun, as the JAX driver shards its step:
+every rank walks the same batch order and takes its rows (the resident
+store is staged whole on every rank's card, replicated, and each rank
+gathers its rows of the index batch); the step sums the loss parts and
+the gradients over the data ranks (`train/step.py`), so every rank
+applies the same update. Rank 0 alone evaluates (over the whole split,
+as JAX's unsharded eval) and writes the histories, TensorBoard and
+checkpoints, the others meeting it at a barrier; every rank resumes from
+the same checkpoint, the generator's state with it.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
 from imagecaptioning_tpu_torch.eval.eval_split import eval_split
 from imagecaptioning_tpu_torch.models.captioners import (
     DTYPES, build_model, encoder_always_frozen, encoder_name)
+from imagecaptioning_tpu_torch.parallel import mesh as meshlib
 from imagecaptioning_tpu_torch.train import optim
 from imagecaptioning_tpu_torch.train.step import (make_eval_step,
                                                   make_train_step)
@@ -129,6 +141,12 @@ def train(cfg: CaptionConfig, *, device=None,
     """Train per config → a summary with the histories' paths, the best
     val score, the final test evals, the model, optimizer and loader."""
     dev = resolve_device(device)
+    mesh = meshlib.mesh_for_batch(cfg.batch_size, cfg.mesh_shape,
+                                  cfg.mesh_axis_names, dev)
+    if mesh.idle:
+        meshlib.announce_idle(mesh, cfg.batch_size)
+        return {"iters": 0, "idle": True, "mesh": mesh.shape}
+    writer = meshlib.is_writer()
     loss_file, result_file, save_path = name_model(cfg)
     loader = make_loader(cfg, synthetic_fallback, synthetic_images,
                          synthetic_learnable)
@@ -163,7 +181,9 @@ def train(cfg: CaptionConfig, *, device=None,
                          dtype=DTYPES[cfg.compute_dtype])
     train_step = make_train_step(
         model, optimizer, generator, preprocess,
-        clip_norm=cfg.grad_clip_norm if cfg.clip_grad else None)
+        clip_norm=cfg.grad_clip_norm if cfg.clip_grad else None,
+        dp=mesh.data)
+    rows = mesh.data.rows(bs)
     eval_loss = make_eval_step(model)
 
     loss_hist = LossHistory(loss_file, resume=cfg.from_checkpoint)
@@ -192,15 +212,15 @@ def train(cfg: CaptionConfig, *, device=None,
                                          start_images=start_images)
 
         def run_step(item):
-            idx = torch.from_numpy(item).to(dev)
+            idx = torch.from_numpy(item[rows]).to(dev)
             return train_step(*device_store.gather_batch(store, idx))
-        if verbose:
+        if verbose and writer:
             print(f"train split resident on {dev} "
                   f"({store.nbytes / 2**20:.0f} MiB)")
     else:
         feed = prefetch_batches(
             _batch_iterator(loader, cfg, bs, start_images=start_images),
-            size=2, to_device=lambda a: torch.from_numpy(a).to(dev))
+            size=2, to_device=lambda a: torch.from_numpy(a[rows]).to(dev))
 
         def run_step(item):
             images_u8, labels = item
@@ -225,9 +245,10 @@ def train(cfg: CaptionConfig, *, device=None,
         for item in feed:
             if it >= max_iter:
                 break
-            if sig.requested:
+            if mesh.any(sig.requested):
                 ckptlib.save_checkpoint(save_path + ".preempt", state())
-                if verbose:
+                mesh.barrier()
+                if verbose and writer:
                     print(f"preemption checkpoint written at iter {it}")
                 break
             model.freeze_encoder = encoder_frozen(cfg, it, frozen_until)
@@ -241,10 +262,13 @@ def train(cfg: CaptionConfig, *, device=None,
                 loss_hist.flush()
                 tb.scalar("train/loss", last_loss, it)
                 tb.scalar("train/step_ms", step_ms, it)
-                if verbose:
+                if verbose and writer:
                     print(f"iter {it}/{max_iter} loss {last_loss:.4f} "
                           f"({step_ms:.1f} ms)")
             if it % eval_every == 0 or it == max_iter:
+                if not writer:
+                    mesh.barrier()
+                    continue
                 results = evaluate(1, eval_loss_fn=eval_loss)
                 is_best = res_hist.append(it, results)
                 res_hist.flush()
@@ -255,8 +279,9 @@ def train(cfg: CaptionConfig, *, device=None,
                           f"best={is_best}")
                 if is_best:
                     ckptlib.save_checkpoint(save_path, state())
+                mesh.barrier()
     final = {}
-    if loader.split_ix[2]:
+    if loader.split_ix[2] and writer:
         final["greedy"] = evaluate(2, return_records=True)
         if cfg.use_beam:
             for k in range(1, 6):

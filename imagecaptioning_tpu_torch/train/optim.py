@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from imagecaptioning_tpu_torch.models.captioners import encoder_always_frozen
+from imagecaptioning_tpu_torch.parallel import mesh
 
 ENCODER_MODULES = ("features", "encoder_vit")
 
@@ -95,7 +96,13 @@ class Accumulating:
     and returns True, for the caller to clip and `step()`; before, it
     clears `.grad` and returns False: nothing else changes. The
     micro-step count and the means are in `state_dict()`, so a run saved
-    mid-window resumes bitwise."""
+    mid-window resumes bitwise.
+
+    In a data-parallel step (`parallel.mesh.active`) the gradients are
+    summed over the data ranks here, once an applied update: the
+    gradients themselves when k = 1, the window's means at its k-th
+    micro-step (the mean is linear, so the sum of the ranks' means is the
+    mean of the summed micro-gradients)."""
 
     def __init__(self, *args, every: int = 1, accumulated=(), **kw):
         super().__init__(*args, **kw)
@@ -107,6 +114,8 @@ class Accumulating:
     @torch.no_grad()
     def accumulate(self) -> bool:
         if self.every == 1:
+            mesh.current().reduce_grads(
+                p.grad for p in self.accumulated.values())
             return True
         n = self.mini_step
         # CUDA divides by a Python scalar as a multiply by its reciprocal,
@@ -132,6 +141,7 @@ class Accumulating:
         self.mini_step = n + 1
         if self.mini_step < self.every:
             return False
+        mesh.current().reduce_grads(self.means.values())
         for name, acc in self.means.items():
             self.accumulated[name].grad = acc
         self.mini_step, self.means = 0, {}

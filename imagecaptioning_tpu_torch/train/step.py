@@ -13,6 +13,17 @@ Under gradient accumulation (the optimizer's `every` = k > 1, optax's
 `MultiSteps`) a call is a micro-step: backward on every call, the clip
 and the update once a window, over the mean of its k gradients; each
 call returns its own loss and gradient norm, as JAX's step does.
+
+Data-parallel (`dp`, a `parallel.mesh.DataParallel`): the images and
+captions are this rank's rows of the global batch; the forward, backward
+and update run under `mesh.active(dp)`, so the loss is this rank's part
+of the global mean, BatchNorm takes the global batch's statistics, the
+dropout masks are this rank's rows of the global batch's, and the
+optimizer sums the gradients over the data ranks once an applied update
+(`Accumulating`). Every rank then takes the same update. The returned
+loss and gradient norm are the global ones; under accumulation on more
+than one data rank a micro-step's gradient norm would need its own
+reduction of every gradient, and is NaN.
 """
 
 from __future__ import annotations
@@ -22,34 +33,44 @@ from typing import Callable, Dict, Optional
 import torch
 
 from imagecaptioning_tpu_torch.models.api import make_forward_fn
+from imagecaptioning_tpu_torch.parallel import mesh
 from imagecaptioning_tpu_torch.train import optim
 
 
 def make_train_step(model, optimizer: torch.optim.Optimizer,
                     generator: Optional[torch.Generator] = None,
                     preprocess: Optional[Callable] = None,
-                    clip_norm: Optional[float] = None) -> Callable:
+                    clip_norm: Optional[float] = None,
+                    dp: Optional[mesh.DataParallel] = None) -> Callable:
     """(images (B, H, W, 3), gt (B, T)) → {"loss", "grad_norm"}. With
     `preprocess` the images are uint8 and go through it first; with
-    `clip_norm` the gradients are clipped to that global norm."""
+    `clip_norm` the gradients are clipped to that global norm; with `dp`
+    the batch is this rank's rows (module docstring)."""
     forward = make_forward_fn(model)
     params = [p for p in model.parameters() if p.requires_grad]
+    dp = dp or mesh.IDENTITY
 
     def train_step(images, gt) -> Dict[str, torch.Tensor]:
-        x = preprocess(images) if preprocess is not None else images
-        model.train()
-        loss, _ = forward(x, gt, generator=generator, train=True)
-        # every parameter's: a trunk outside the optimizer (finetune_cnn
-        # off) still has gradients, for the global norm
-        model.zero_grad(set_to_none=True)
-        loss.backward()
-        gnorm = optim.global_norm(params)
-        if optimizer.accumulate():
-            if clip_norm is not None:      # the norm of the window's mean
-                optim.clip_by_global_norm_(
-                    params, clip_norm, gnorm if optimizer.every == 1 else None)
-            optimizer.step()
-        return {"loss": loss.detach(), "grad_norm": gnorm}
+        with mesh.active(dp):
+            x = preprocess(images) if preprocess is not None else images
+            model.train()
+            loss, _ = forward(x, gt, generator=generator, train=True)
+            # every parameter's: a trunk outside the optimizer (finetune_cnn
+            # off) still has gradients, for the global norm
+            model.zero_grad(set_to_none=True)
+            loss.backward()
+            if optimizer.every > 1:        # the micro-step's own gradients
+                gnorm = (optim.global_norm(params) if dp.size == 1
+                         else torch.full((), float("nan")))
+            if optimizer.accumulate():     # summed over the data ranks
+                if optimizer.every == 1:
+                    gnorm = optim.global_norm(params)
+                if clip_norm is not None:  # the norm of the window's mean
+                    optim.clip_by_global_norm_(
+                        params, clip_norm,
+                        gnorm if optimizer.every == 1 else None)
+                optimizer.step()
+        return {"loss": dp.all_sum(loss.detach()), "grad_norm": gnorm}
     return train_step
 
 

@@ -9,7 +9,11 @@ head, trained on the 5-loss sum).
 e.g. `max_iters=1000 roi_only=true`. Each `key=value` overrides a field
 of the DenseCap config, typed like its default. Runs on the first CUDA
 card unless `--device cpu`. Without the config's VG HDF5 it trains on
-seeded synthetic data.
+seeded synthetic data. Under torchrun each process is a data rank (NCCL
+on the cards, gloo with `--device cpu`):
+
+  python -m torch.distributed.run --nproc_per_node=N \
+      -m imagecaptioning_tpu_torch.train_DenseCap [key=value ...]
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import argparse
 
 from imagecaptioning_tpu_torch.config.dense_configs import (
     apply_overrides, get_densecap_config)
+from imagecaptioning_tpu_torch.parallel import mesh as meshlib
 from imagecaptioning_tpu_torch.train.dense_driver import train_rpn
 
 
@@ -25,10 +30,12 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("overrides", nargs="*", metavar="KEY=VALUE")
     p.add_argument("--device", default=None,
-                   help="torch device (default: the first CUDA card)")
+                   help="torch device (default: the first CUDA card, or "
+                        "the rank's card under torchrun)")
     a = p.parse_args(argv)
-    return train_rpn(apply_overrides(get_densecap_config(), a.overrides),
-                     device=a.device)
+    with meshlib.process_group(a.device):
+        return train_rpn(apply_overrides(get_densecap_config(),
+                                         a.overrides), device=a.device)
 
 
 if __name__ == "__main__":

@@ -9,6 +9,12 @@ e.g. `--smoke --device cpu --set backbone_stages=1,1,1,1` trains a few
 steps of a cut trunk on seeded synthetic data on the CPU. Runs on the
 first CUDA card unless `--device cpu`. Without the config's Face2Text
 HDF5 it trains on seeded synthetic data.
+
+Under torchrun each process is a data rank (NCCL on the cards, gloo
+with `--device cpu`):
+
+  python -m torch.distributed.run --nproc_per_node=N \\
+      -m imagecaptioning_tpu_torch.train_LSTM [--smoke] [--set ...]
 """
 
 from __future__ import annotations

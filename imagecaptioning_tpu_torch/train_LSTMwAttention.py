@@ -10,6 +10,12 @@ embedding_size=16 lstm_size=16` trains a few steps of a cut
 model on seeded synthetic data on the CPU. Runs on the first CUDA card
 unless `--device cpu`. Without the config's Face2Text HDF5 it trains on
 seeded synthetic data.
+
+Under torchrun each process is a data rank (NCCL on the cards, gloo
+with `--device cpu`):
+
+  python -m torch.distributed.run --nproc_per_node=N \\
+      -m imagecaptioning_tpu_torch.train_LSTMwAttention [--smoke] [--set ...]
 """
 
 from __future__ import annotations

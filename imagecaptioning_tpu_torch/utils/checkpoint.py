@@ -12,6 +12,12 @@ Saving writes `<path>.tmp-save` first and swaps it in with renames,
 keeping the previous file as `<path>.old` until the new one is in place:
 a crash at any point leaves a restorable checkpoint. `resume_path` keeps the JAX
 package's order of preference.
+
+In a run of several processes rank 0 alone writes (`save_checkpoint` is a
+no-op elsewhere; the drivers meet it at a barrier after the write), every
+rank reads the same file to resume, and `SignalCheckpointer` is installed
+on every rank: torchrun passes a signal to each, and the drivers agree on
+it at a step boundary (`Mesh.any`) before rank 0 saves.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ import signal as _signal
 from typing import Any, Dict, Optional
 
 import torch
+
+from imagecaptioning_tpu_torch.parallel import mesh
 
 
 def train_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -43,7 +51,10 @@ def load_train_state(state: Dict[str, Any], model: torch.nn.Module,
 
 
 def save_checkpoint(path: str, state: Dict[str, Any]) -> None:
-    """Write `state` to `path` atomically (tmp file, then renames)."""
+    """Write `state` to `path` atomically (tmp file, then renames); only
+    rank 0 of a run of several processes writes."""
+    if not mesh.is_writer():
+        return
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp, old = path + ".tmp-save", path + ".old"

@@ -7,6 +7,9 @@ small option and loss helpers — port of `imagecaptioning_tpu/utils/io.py`.
   `train_LSTM.py:89-94,131-133`);
 - `getopt`, `dict_average`, `average_values`, `build_loss_string`
   (`my_utils.getopt`, DenseCap's `densecap_utils`).
+
+In a run of several processes only rank 0 writes the histories
+(`parallel.mesh.is_writer`); elsewhere `flush` is a no-op.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from __future__ import annotations
 import json
 import os
 from typing import Any, Dict, List, Optional
+
+from imagecaptioning_tpu_torch.parallel import mesh
 
 
 def getopt(opt, key: str, default=None):
@@ -90,7 +95,8 @@ class LossHistory:
                              "epoch time in ms": float(step_ms)})
 
     def flush(self) -> None:
-        write_json(self.path, self.records)
+        if mesh.is_writer():
+            write_json(self.path, self.records)
 
 
 class ResultsHistory:
@@ -129,4 +135,5 @@ class ResultsHistory:
         return is_best
 
     def flush(self) -> None:
-        write_json(self.path, self.records)
+        if mesh.is_writer():
+            write_json(self.path, self.records)

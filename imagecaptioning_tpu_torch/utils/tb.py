@@ -4,21 +4,23 @@ The loss and results history JSONs (`utils/io.py`) stay the record; this
 adds an event stream when a config sets `tensorboard_dir`, through torch's
 own `SummaryWriter`. Where `torch.utils.tensorboard` does not import (it
 needs the `tensorboard` package), the writer is a silent no-op, as in the
-JAX package.
+JAX package. Off rank 0 of a run of several processes it is a no-op too.
 """
 
 from __future__ import annotations
 
 from typing import Mapping, Optional
 
+from imagecaptioning_tpu_torch.parallel import mesh
+
 
 class TBWriter:
-    """Scalar event writer; a no-op unless `logdir` is set and
-    `torch.utils.tensorboard` imports."""
+    """Scalar event writer; a no-op unless `logdir` is set, this process
+    writes the run's files and `torch.utils.tensorboard` imports."""
 
     def __init__(self, logdir: Optional[str]):
         self._writer = None
-        if not logdir:
+        if not logdir or not mesh.is_writer():
             return
         try:
             from torch.utils.tensorboard import SummaryWriter

@@ -20,7 +20,8 @@ fp32 on the CPU.
   identical to the streaming batches and to JAX's;
 - `eval_split` greedy and beam-3: records identical, METEOR, BLEU, BLEU-4
   and CIDEr within 1e-9; CIDEr-D and the scorer on edge cases;
-- the config copy and its artifact names equal to JAX's;
+- the config copy (the JAX fields but `backend` and `device`, the mesh
+  fields included) and its artifact names equal to JAX's;
 - `train` end to end: histories in the reference schema, the best
   checkpoint, a preemption checkpoint and a resume that continues the
   batch cursor and ends on the uninterrupted run's loss; the
@@ -90,8 +91,8 @@ def test_config_copy_and_names_match_jax():
     port_fields = {f.name for f in dataclasses.fields(pc)}
     jax_fields = {f.name for f in dataclasses.fields(jc)}
     assert port_fields < jax_fields
-    assert jax_fields - port_fields == {"mesh_shape", "mesh_axis_names",
-                                        "backend", "device"}
+    assert jax_fields - port_fields == {"backend", "device"}
+    assert {"mesh_shape", "mesh_axis_names"} < port_fields
     for name in port_fields:
         assert getattr(pc, name) == getattr(jc, name), name
     for kw in ({}, {"iterate": True, "use_dropout": True, "batch_size": 4},
@@ -104,9 +105,11 @@ def test_config_copy_and_names_match_jax():
     want = jax_configs.apply_overrides(jc, over).to_dict()
     for name in port_fields:
         assert got[name] == want[name], name
-    for left_out in ("mesh_shape", "backend", "device"):
+    for left_out in ("backend", "device"):
         with pytest.raises(KeyError, match="--device"):
             configs.apply_overrides(pc, {left_out: "cpu"})
+    mesh = {"mesh_shape": "-1,2", "mesh_axis_names": "data,model"}
+    assert configs.apply_overrides(pc, mesh).mesh_shape == (-1, 2)
 
 
 # -------------------------------------------------- module 7: optimizer
