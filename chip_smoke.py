@@ -238,7 +238,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    one-process step on this card by phase 14's gate, with K1, A and B
    once a rank; (c) the AlexCap LSTM step after the finetune boundary at
    batch 12 (6 a rank), BatchNorm over the global batch, fp64, held alike
-   and on its running statistics (`dp_training`).
+   and on its running statistics; (d) in the same world as ('data',
+   'model') = (1, 2), the ViT-B/16 captioner of `get_vitb_config()` and
+   the AlexCap Transformer on ResNet-101, each at its config's full width
+   (fp32, batch 12, dropout on) with its parameters split over 'model'
+   by `shard_params`, held against the same step unsplit in one process
+   on this card by phase 14's gate, with the collectives each axis ran
+   (all staged through the host under gloo); (e) `dryrun_multichip(2)`'s
+   steps (`dryrun.rank_steps`) in the same world, split as (1, 2), the
+   GT and RPN steps launching K1 and B (their trunks frozen, as in JAX's
+   dry run: no kernel A) (`dp_training`).
 Every line of phases 4–27 carries the card's name and power limit. The
 kernels line counts each kernel's launches over every path that runs it
 (`launches`, split in `launches_by_path`): the fused forward in both GT
@@ -258,7 +267,8 @@ only), phase 25's runs (`evidence_gt`, `evidence_rpn`;
 K1; `interchange_gt_step_after_encoder_init`: K1 and A;
 `interchange_lstm_infer`: 0), and phase 27's (`dp`: both ranks' steps,
 K1, A and B once each a rank; `dp_torchrun_train_DenseCap`: the
-torchrun trainer's steps and eval).
+torchrun trainer's steps and eval; `dp_dryrun_multichip`: both ranks'
+GT and RPN dry-run steps).
 The last three lines: the card as nvidia-smi reports it, one JSON line of
 per-kernel numbers, and {"ok": true, "device": ...}. The profiler's full
 tables go to <out-dir>/chip_smoke_*_profile.txt, one for each profiled
@@ -3256,6 +3266,82 @@ def dp_alexcap_step(dev, roi, dp, state=None) -> dict:
                           {"total": float(out["loss"])}, roi_counts(roi))
 
 
+# the split steps (phase 27 (d)): the families `shard_params` splits, at
+# the config's full width, fp32, the config's dropout on
+DP_SPLIT_FAMILIES = ("vitb", "transformer")
+# phase 14's gate, but for the share of weights more than 1e-7 apart: a
+# first Adam step moves a weight whose gradient is within rounding of zero
+# by up to lr either way, and a split sums its products in another order
+# (a row split's halves, then their sum), so in fp32 more gradients round
+# apart than under the data split. A weight's update can differ only where
+# its gradient does, so the weights take the gradients' share, GRAD_SHARE_TOL
+# (the first card run: 8.5e-5 of the ViT-B's weights, 6.0e-4 of the
+# Transformer's, all within 2 lr)
+SPLIT_PARAM_SHARE_TOL = GRAD_SHARE_TOL
+# the dry run's dense steps keep the trunk frozen (the finetune boundary
+# at 10 updates, as JAX's dry run sets it), so they launch K1 and B, not A
+DRYRUN_KERNELS = ("roi_align_batch_chw", "roi_align_bwd_boxes")
+
+
+def dp_split_step(dev, mesh, model_type: str, state=None) -> dict:
+    """One train step of an AlexCap family at its config's full width
+    (ViT-B: the ViT-B/16 encoder, frozen by `trained_encoder`, and the
+    6-layer 768-wide decoder; Transformer: ResNet-101, frozen as before
+    the finetune boundary, and the 6 + 6-layer head) in fp32 with its
+    dropout on and a constant lr (the first step of the schedule's
+    warm-up has lr 0), on DP_ALEX_BATCH uint8 CelebA-size images, from
+    seed 0's weights or `state`; with `mesh`, its parameters split over
+    the mesh's 'model' axis (`shard_params`) and the batch over 'data'.
+    → the outcome on the host, the split parameters and gradients whole
+    (`ModelAxis.full`, a collective on every rank)."""
+    from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
+    from imagecaptioning_tpu_torch.models.captioners import build_model
+    from imagecaptioning_tpu_torch.parallel import mesh as meshlib
+    from imagecaptioning_tpu_torch.train import optim
+    from imagecaptioning_tpu_torch.train.step import make_train_step
+    from imagecaptioning_tpu_torch.utils.weights import seeded_init_
+
+    cfg = alexcap_cfg(model_type, compute_dtype="float32",
+                      param_dtype="float32", use_scheduler=False,
+                      batch_size=DP_ALEX_BATCH)
+    rng = np.random.RandomState(SEED + 29)
+    images = torch.from_numpy(rng.randint(0, 256, (DP_ALEX_BATCH, *ALEX_HW,
+                                                   3), dtype=np.uint8))
+    labels = torch.from_numpy(rng.randint(1, ALEX_VOCAB + 1,
+                                          (DP_ALEX_BATCH, ALEX_SEQ)))
+    labels[1::3, 9:] = 0
+    model, state = dp_initial(
+        build_model(cfg, ALEX_VOCAB, ALEX_SEQ, freeze_encoder=True,
+                    device=dev), state, lambda m: seeded_init_(m, SEED))
+    full, dp = (lambda t: t), meshlib.IDENTITY
+    split = []
+    if mesh is not None:
+        meshlib.shard_params(model, mesh)
+        split = [n for n, p in model.named_parameters()
+                 if meshlib.is_split(p)]
+        full, dp = mesh.model.full, mesh.data
+    opt = optim.make_optimizer(cfg, model, 10)
+    grads = {}
+    opt.register_step_pre_hook(lambda *_: grads.update(
+        {n: full(p.grad).detach().cpu().clone()
+         for n, p in model.named_parameters() if p.grad is not None}))
+    step = make_train_step(
+        model, opt, torch.Generator(dev).manual_seed(SEED),
+        lambda u8: resnet_v2_preprocess(u8, dtype=torch.float32),
+        clip_norm=cfg.grad_clip_norm, dp=dp)
+    rows = dp.rows(DP_ALEX_BATCH)
+    out = step(images[rows].to(dev), labels[rows].to(dev))
+    torch.cuda.synchronize()
+    return {"state": state,
+            "params": {n: full(p).detach().cpu() for n, p in
+                       model.named_parameters()},
+            "stats": {}, "grads": grads,
+            "losses": {"total": float(out["loss"])}, "split": split,
+            "devices": sorted({str(meshlib.local(p).device)
+                               for p in model.parameters()}),
+            "lr": cfg.learning_rate}
+
+
 def dp_child(mode: str, argv) -> int:
     """A process that phase 27 starts: `--dp-rank OUT_DIR` is one rank of
     the gloo world on cuda:0 (torchrun's environment, set by
@@ -3312,19 +3398,56 @@ def dp_child(mode: str, argv) -> int:
                 del one
             del world
             torch.cuda.empty_cache()
+        # (d) the split: the same world as ('data', 'model') = (1, 2)
+        split_mesh = meshlib.create_mesh((1, DP_WORLD), ("data", "model"),
+                                         dev)
+        out["split_mesh"] = split_mesh.shape
+        for model_type in DP_SPLIT_FAMILIES:
+            t0 = time.perf_counter()
+            split_mesh.model.calls.clear()
+            split_mesh.data.calls.clear()
+            world = dp_split_step(dev, split_mesh, model_type)
+            key = f"split_{model_type}"
+            out["seconds"][key] = time.perf_counter() - t0
+            out["losses"][key] = world["losses"]
+            out[f"{key}_collectives"] = {
+                "model": dict(split_mesh.model.calls),
+                "data": dict(split_mesh.data.calls)}
+            out[f"{key}_params"] = [len(world["split"]),
+                                    len(world["params"])]
+            out[f"{key}_devices"] = world["devices"]
+            torch.cuda.empty_cache()
+            if rank == 0:
+                t0 = time.perf_counter()
+                one = dp_split_step(dev, None, model_type, world["state"])
+                out[key] = dp_agreement(world, one, world["lr"], False,
+                                        SPLIT_PARAM_SHARE_TOL)
+                out[key]["one_process_seconds"] = time.perf_counter() - t0
+                del one
+            del world
+            torch.cuda.empty_cache()
+        # (e) dryrun_multichip(2)'s steps in this world, split as (1, 2)
+        from imagecaptioning_tpu_torch import dryrun
+        t0 = time.perf_counter()
+        zero_roi_counts(roi)
+        out["dryrun"] = dryrun.rank_steps(DP_WORLD, dev)
+        torch.cuda.synchronize()
+        out["launches"]["dryrun"] = roi_counts(roi)
+        out["seconds"]["dryrun"] = time.perf_counter() - t0
         (out_dir / f"dp_rank{rank}.json").write_text(json.dumps(out))
     finally:
         meshlib.shutdown()
     return 0
 
 
-def dp_agreement(got: dict, want: dict, lr: float, bn: bool) -> dict:
+def dp_agreement(got: dict, want: dict, lr: float, bn: bool,
+                 param_share: float = 1e-5) -> dict:
     """Phase 14's gate between two step outcomes (`dp_step_result`): each
     loss LOSS_REL_TOL relative; each gradient GRAD_REL_TOL relative in
     all but GRAD_SHARE_TOL of each tensor's elements (`grad_agreement`),
-    the same tensors on both sides; every weight within 2·lr, at most 1e-5
-    of them more than 1e-7 apart; with `bn`, the BatchNorm statistics
-    within BN_TOL."""
+    the same tensors on both sides; every weight within 2·lr, at most
+    `param_share` of them more than 1e-7 apart; with `bn`, the BatchNorm
+    statistics within BN_TOL."""
     loss_rel = max(abs(got["losses"][k] - v) / max(abs(v), 1e-30)
                    for k, v in want["losses"].items() if v != 0.0)
     agree = grad_agreement(got["grads"], want["grads"])
@@ -3347,7 +3470,7 @@ def dp_agreement(got: dict, want: dict, lr: float, bn: bool) -> dict:
            off / total, "bn_running_stats_max_abs_err": stats}
     res["ok"] = (loss_rel <= LOSS_REL_TOL and res["grads_same_tensors"]
                  and res["grad_share_over_tol_max"] <= GRAD_SHARE_TOL
-                 and worst <= 2 * lr + 1e-7 and off / total <= 1e-5
+                 and worst <= 2 * lr + 1e-7 and off / total <= param_share
                  and (not bn or stats <= BN_TOL))
     return res
 
@@ -3366,7 +3489,14 @@ def dp_training(dev, roi, out_dir: Path, card="") -> dict:
         rank;
     (c) in the same world, the AlexCap LSTM step after the finetune
         boundary at batch DP_ALEX_BATCH (6 a rank), BatchNorm over the
-        global batch, fp64, held alike and on its statistics.
+        global batch, fp64, held alike and on its statistics;
+    (d) the same world as ('data', 'model') = (1, DP_WORLD): each of
+        DP_SPLIT_FAMILIES at full width split over 'model'
+        (`dp_split_step`), held alike against its unsplit step; each
+        rank's collectives by axis, and whether they went through the
+        host;
+    (e) `dryrun.rank_steps(DP_WORLD)` in the same world: its two lines
+        and both ranks' ROI launches.
     Rank 0 runs each one-process step after the world's, from the same
     weights; it draws the same dropout masks and sampler keys (the ranks
     draw the global batch's and keep their rows)."""
@@ -3443,6 +3573,23 @@ def dp_training(dev, roi, out_dir: Path, card="") -> dict:
     for name in ("rpn", "alexcap"):
         res[name] = ranks[0][name]
         res[name]["rank_losses"] = [r["losses"][name] for r in ranks]
+    res["split_mesh"] = ranks[0]["split_mesh"]
+    for model_type in DP_SPLIT_FAMILIES:
+        key = f"split_{model_type}"
+        res[key] = ranks[0][key]
+        res[key]["rank_losses"] = [r["losses"][key] for r in ranks]
+        res[key]["split_params_of_all"] = ranks[0][f"{key}_params"]
+        res[key]["rank_devices"] = [r[f"{key}_devices"] for r in ranks]
+        res[key]["rank_collectives"] = [r[f"{key}_collectives"]
+                                        for r in ranks]
+    calls = [c for model_type in DP_SPLIT_FAMILIES
+             for c in res[f"split_{model_type}"]["rank_collectives"]]
+    res["collectives_staged_through_host"] = any(
+        "(host)" in name for c in calls for axis in c.values()
+        for name in axis)
+    res["dryrun"] = ranks[0]["dryrun"]
+    res["dryrun_launches"] = {k: sum(r["launches"]["dryrun"][k]
+                                     for r in ranks) for k in ROI_WRAPPERS}
     once = {k: 1 for k in DP_KERNELS}
     res["roi_once_a_rank"] = all(
         {k: r["launches"]["rpn"][k] for k in DP_KERNELS} == once
@@ -3454,13 +3601,28 @@ def dp_training(dev, roi, out_dir: Path, card="") -> dict:
                         f"each gradient {GRAD_REL_TOL} relative in all but "
                         f"{GRAD_SHARE_TOL} of each tensor's elements; "
                         f"params within 2 lr, at most 1e-5 of them more "
-                        f"than 1e-7 apart; BatchNorm statistics {BN_TOL}")
-    print(f"data-parallel training (world {DP_WORLD}, gloo on one card; "
-          f"torchrun NCCL world 1): {json.dumps(res)}", flush=True)
+                        f"than 1e-7 apart ({SPLIT_PARAM_SHARE_TOL} for the "
+                        f"split steps); BatchNorm statistics {BN_TOL}")
+    print(f"data-parallel training and the tensor split (world "
+          f"{DP_WORLD}, gloo on one card; torchrun NCCL world 1): "
+          f"{json.dumps(res)}", flush=True)
     a = res["torchrun_nccl_world1"]["launches"]
+    split_ok = all(
+        res[f"split_{m}"]["ok"] and 0 < res[f"split_{m}"][
+            "split_params_of_all"][0]
+        and all(d == ["cuda:0"] for d in res[f"split_{m}"]["rank_devices"])
+        for m in DP_SPLIT_FAMILIES)
+    dry = res["dryrun"]
+    dry_ok = (len(dry) == 2 and dry[-1].startswith(
+        f"dryrun_multichip({DP_WORLD}): mesh={{'data': 1, 'model': "
+        f"{DP_WORLD}}} vitb_loss=") and dry[-1].endswith(" OK")
+        and all(int(w.split("=")[1].split("/")[0]) > 0
+                for w in dry[0].split()[-3:])
+        and all(res["dryrun_launches"][k] > 0 for k in DRYRUN_KERNELS))
     if not (res["rpn"]["ok"] and res["alexcap"]["ok"]
             and res["roi_once_a_rank"] and res["mesh"] == {"data": DP_WORLD}
-            and all(a[k] > 0 for k in DP_KERNELS)):
+            and all(a[k] > 0 for k in DP_KERNELS) and split_ok and dry_ok
+            and res["split_mesh"] == {"data": 1, "model": DP_WORLD}):
         raise AssertionError(f"data-parallel training failed: {res}")
     return res
 
@@ -3697,6 +3859,7 @@ def main() -> int:
         # phase 27: both ranks' steps of the gloo world, and the torchrun
         # trainer's run with its eval
         "dp": dp["launches"],
+        "dp_dryrun_multichip": dp["dryrun_launches"],
         "dp_torchrun_train_DenseCap": dp["torchrun_nccl_world1"][
             "launches"]}
     alexcap_paths["alexcap_trainer_with_evals"] = evals["alexcap"]["launches"]

@@ -10,7 +10,9 @@ attributes)` tuple of `get_batch` with clamped attributes (`:88-95`).
 Batches leave the host as uint8 HWC; the resize and normalization run on
 the card (`data.transforms`). The images come from arrays, or from the
 HDF5 file (`h5py`, imported only then), read whole into RAM
-(`cache_images`, the default) or lazily per batch. One `RandomState`
+(`cache_images`, the default; batches then come from the native
+multi-threaded gather, `native.gather_records`, as in the JAX loader) or
+lazily per batch. One `RandomState`
 drives every shuffle and draw, in the JAX package's order, so batches
 come in the same order in both packages, on the streaming path and the
 device-resident one (`data.device_store`) alike; the resume cursor is
@@ -26,6 +28,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from imagecaptioning_tpu_torch import native
 from imagecaptioning_tpu_torch.data.tokenizer import Vocab
 
 
@@ -89,8 +92,11 @@ class AlexDataLoader:
         self.iterators[split_val] = 0
 
     def _gather(self, ix: np.ndarray) -> np.ndarray:
+        """The images `ix`: the native gather over an in-RAM array (the
+        JAX loader's `gather_records`), a per-record read of a lazy HDF5
+        store."""
         if isinstance(self.images, np.ndarray):
-            return self.images[ix]
+            return native.gather_records(self.images, ix)
         return np.stack([np.asarray(self.images[int(i)]) for i in ix])
 
     def get_batch(self, opt, batch_size: int, idx: int = -1):

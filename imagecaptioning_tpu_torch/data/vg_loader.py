@@ -9,9 +9,10 @@ resized coords, split codes 0/1/2. `padded_batches` yields fixed-shape
 batches (square-padded uint8 images, regions padded or truncated to
 `max_regions` with a mask), normalized on the device by
 `normalize_images`. The HDF5 branch imports `h5py` only when it is used;
-in-memory arrays (`arrays=`, `info=`) need nothing beyond numpy. Images
-are gathered with a numpy stack (the JAX package uses a C++ gather
-there; the bytes are the same). The reference's one-image `get_batch`
+in-memory arrays (`arrays=`, `info=`) need nothing beyond numpy. A
+batch's images come from the native multi-threaded gather
+(`native.gather_records`) where the store is a uint8 array in RAM, as in
+the JAX loader. The reference's one-image `get_batch`
 API and shuffling are not ported: the GT trainer and eval use neither.
 """
 
@@ -23,6 +24,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from imagecaptioning_tpu_torch import native
 from imagecaptioning_tpu_torch.data.tokenizer import Vocab
 
 # ImageNet statistics used by the reference (DataLoader.py:57-58).
@@ -96,6 +98,11 @@ class VGDataLoader:
     def padded_example(self, ix: int, max_regions: int):
         """Fixed-shape example: square-padded uint8 image + padded region
         slab with mask. Box coords stay in resized-image space."""
+        return {"image": self._image_u8(ix),
+                **self._padded_regions(ix, max_regions)}
+
+    def _padded_regions(self, ix: int, max_regions: int):
+        """`padded_example` without its image."""
         boxes, labels = self.region_slab(ix)
         rm = max_regions
         out_boxes = np.zeros((rm, 4), np.float32)
@@ -110,7 +117,6 @@ class VGDataLoader:
             out_boxes[take:] = [8.0, 8.0, 8.0, 8.0]
         mask[:take] = 1.0
         return {
-            "image": self._image_u8(ix),
             "image_hw": np.asarray([self.image_heights[ix],
                                     self.image_widths[ix]], np.float32),
             "boxes": out_boxes,
@@ -130,9 +136,14 @@ class VGDataLoader:
         if start:
             ix = ix[start % len(ix):]
         for s in range(0, len(ix) - batch_size + 1, batch_size):
-            ex = [self.padded_example(int(i), rm)
-                  for i in ix[s:s + batch_size]]
-            yield {k: np.stack([e[k] for e in ex]) for k in ex[0]}
+            sel = ix[s:s + batch_size]
+            ex = [self._padded_regions(int(i), rm) for i in sel]
+            if isinstance(self.images, np.ndarray):
+                images = native.gather_records(self.images, sel)
+            else:
+                images = np.stack([self._image_u8(i) for i in sel])
+            yield {"image": images,
+                   **{k: np.stack([e[k] for e in ex]) for k in ex[0]}}
 
 
 def normalize_images(images_u8: torch.Tensor,

@@ -5,14 +5,20 @@
 captioner (the reference's heaviest family, `train_ViTB.py`), with its
 arguments. `dryrun_multichip(n)` starts n processes, a process group over
 them (gloo on the CPU, or NCCL with one card each where there are n) and
-one data-parallel train step on each for five families at tiny shapes:
-the ViT captioner, the Transformer captioner and the attention-LSTM over
-a ResNet trunk (BatchNorm's statistics over the global batch), the GT
-dense step (VGG trunk → ROI pooling → LSTM head) and the full RPN step
-(anchors → sampler → ROI pooling → the five losses). It prints the JAX
-package's line with `mesh={'data': n}` and the global losses. The JAX
-dry run also splits the transformer weights over a `'model'` axis; that
-split is the tensor-parallel slice, not ported, and the line says so.
+a mesh over ('data', 'model') of (n/2, 2) where n is even, (n, 1) where
+it is odd, as the JAX dry run lays out its devices. Then one train step
+on each rank for five families at tiny shapes: the ViT captioner, the
+Transformer captioner and the attention-LSTM over a ResNet trunk
+(BatchNorm's statistics over the global batch), their parameters split
+over `'model'` by `parallel.mesh.shard_params` (the JAX package's
+`PARTITION_RULES`), the batch over `'data'`; then the GT dense step (VGG
+trunk → ROI pooling → LSTM head) and the full RPN step (anchors → sampler
+→ ROI pooling → the five losses), data-parallel, their parameters
+replicated over `'model'` as JAX's dry run leaves them. Rank 0 prints how
+many parameters each split step holds as DTensor shards, then the JAX
+package's line with the mesh and the global losses. `rank_steps` runs the
+same on the ranks of a process group that exists already (on one card
+under gloo, say).
 
   python -m imagecaptioning_tpu_torch.dryrun [multichip [n]]
 """
@@ -23,7 +29,7 @@ import os
 import subprocess
 import sys
 import tempfile
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,14 +66,19 @@ def entry(device=None, **overrides):
 
 # ----------------------------------------------------- one rank's steps
 
-def _captioner_loss(mesh, dev, cfg, images, gt) -> float:
-    """One data-parallel train step of a captioner family → its loss."""
+def _captioner_loss(mesh, dev, cfg, images, gt) -> Tuple[float, int, int]:
+    """One train step of a captioner family, its parameters split over the
+    mesh's `'model'` axis and its batch over `'data'` → (loss, the
+    parameters that are DTensor shards, all parameters)."""
     from imagecaptioning_tpu_torch.models.captioners import build_model
+    from imagecaptioning_tpu_torch.parallel import mesh as meshlib
     from imagecaptioning_tpu_torch.train import optim
     from imagecaptioning_tpu_torch.train.step import make_train_step
     from imagecaptioning_tpu_torch.utils.weights import seeded_init_
 
     model = seeded_init_(build_model(cfg, 64, gt.shape[1], device=dev), 0)
+    meshlib.shard_params(model, mesh)
+    params = list(model.parameters())
     opt = optim.make_optimizer(cfg, model, 100)
     gen = torch.Generator(dev).manual_seed(cfg.seed + 1)
     step = make_train_step(model, opt, gen, clip_norm=cfg.grad_clip_norm,
@@ -75,7 +86,8 @@ def _captioner_loss(mesh, dev, cfg, images, gt) -> float:
     rows = mesh.data.rows(images.shape[0])
     out = step(torch.from_numpy(images[rows]).to(dev),
                torch.from_numpy(gt[rows]).to(dev))
-    return float(out["loss"])
+    return (float(out["loss"]), sum(map(meshlib.is_split, params)),
+            len(params))
 
 
 def _dense_inputs(b, r, v, t, labels_below):
@@ -119,52 +131,67 @@ def _dense_loss(mesh, dev, kind: str, n: int) -> float:
     return float(losses["captioning"])
 
 
-def _rank_main(n: int, init_method: str, device: str) -> None:
-    """One rank of `dryrun_multichip`: the five families' steps; rank 0
-    prints the line."""
+def rank_steps(n: int, dev) -> List[str]:
+    """The five families' steps on this rank of a process group of n ranks
+    (every rank calls it) → rank 0's lines (empty on the others)."""
     from imagecaptioning_tpu_torch.config.configs import (
         get_lstm_attention_config, get_transformer_config, get_vitb_config)
     from imagecaptioning_tpu_torch.parallel import mesh as meshlib
 
+    tp = 2 if n % 2 == 0 else 1
+    mesh = meshlib.create_mesh((n // tp, tp), ("data", "model"), dev)
+    b, t, v = n * 2, 8, 64
+    rng = np.random.RandomState(0)
+    gt = rng.randint(1, v + 1, size=(b, t)).astype(np.int64)
+    common = dict(batch_size=b, clip_grad=True, use_dropout=True,
+                  drop_value=0.1, compute_dtype="float32")
+    vit_imgs = rng.rand(b, 32, 32, 3).astype(np.float32)
+    cnn_imgs = rng.rand(b, 64, 64, 3).astype(np.float32)
+    steps = {
+        "vitb": (get_vitb_config().replace(
+            embedding_size=32, num_layers=2, num_heads=4,
+            vit_dims=(32, 16, 2, 4, 32, 64), **common), vit_imgs),
+        "transformer": (get_transformer_config().replace(
+            transformer_size=32, num_layers=2, num_heads=4,
+            backbone_stages=(1, 1, 1, 1), **common), cnn_imgs),
+        "attention_lstm": (get_lstm_attention_config().replace(
+            embedding_size=32, lstm_size=32, backbone_stages=(1, 1, 1, 1),
+            **common), cnn_imgs)}
+    losses: Dict[str, float] = {}
+    split: Dict[str, str] = {}
+    for name, (cfg, images) in steps.items():
+        losses[name], k, total = _captioner_loss(mesh, dev, cfg, images, gt)
+        split[name] = f"{k}/{total}"
+    losses["gt_dense"] = _dense_loss(mesh, dev, "gt", n)
+    losses["rpn"] = _dense_loss(mesh, dev, "rpn", n)
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise FloatingPointError(f"dryrun losses {losses}")
+    if not meshlib.is_writer():
+        return []
+    return [f"dryrun_multichip({n}): parameters split over 'model' "
+            "(DTensor shards/all): "
+            + " ".join(f"{k}={val}" for k, val in split.items()),
+            f"dryrun_multichip({n}): mesh={mesh.shape} "
+            + " ".join(f"{k}_loss={val:.4f}" for k, val in losses.items())
+            + " OK"]
+
+
+def _rank_main(n: int, init_method: str, device: str) -> None:
+    """One rank of `dryrun_multichip`: `rank_steps`; rank 0 prints its
+    lines."""
+    from imagecaptioning_tpu_torch.parallel import mesh as meshlib
+
     dev = meshlib.init_distributed(device, init_method=init_method)
     try:
-        b, t, v = n * 2, 8, 64
-        mesh = meshlib.mesh_for_batch(b, (-1,), ("data",), dev)
-        rng = np.random.RandomState(0)
-        gt = rng.randint(1, v + 1, size=(b, t)).astype(np.int64)
-        common = dict(batch_size=b, clip_grad=True, use_dropout=True,
-                      drop_value=0.1, compute_dtype="float32")
-        vit_imgs = rng.rand(b, 32, 32, 3).astype(np.float32)
-        cnn_imgs = rng.rand(b, 64, 64, 3).astype(np.float32)
-        losses: Dict[str, float] = {}
-        losses["vitb"] = _captioner_loss(mesh, dev, get_vitb_config().replace(
-            embedding_size=32, num_layers=2, num_heads=4,
-            vit_dims=(32, 16, 2, 4, 32, 64), **common), vit_imgs, gt)
-        losses["transformer"] = _captioner_loss(
-            mesh, dev, get_transformer_config().replace(
-                transformer_size=32, num_layers=2, num_heads=4,
-                backbone_stages=(1, 1, 1, 1), **common), cnn_imgs, gt)
-        losses["attention_lstm"] = _captioner_loss(
-            mesh, dev, get_lstm_attention_config().replace(
-                embedding_size=32, lstm_size=32,
-                backbone_stages=(1, 1, 1, 1), **common), cnn_imgs, gt)
-        losses["gt_dense"] = _dense_loss(mesh, dev, "gt", n)
-        losses["rpn"] = _dense_loss(mesh, dev, "rpn", n)
-        if not all(np.isfinite(v) for v in losses.values()):
-            raise FloatingPointError(f"dryrun losses {losses}")
-        if meshlib.is_writer():
-            print(f"dryrun_multichip({n}): mesh={mesh.shape} "
-                  + " ".join(f"{k}_loss={val:.4f}" for k, val in
-                             losses.items())
-                  + " model_split=not-ported (the tensor-parallel slice) OK",
-                  flush=True)
+        for line in rank_steps(n, dev):
+            print(line, flush=True)
     finally:
         meshlib.shutdown()
 
 
-def dryrun_multichip(n_devices: int, timeout: float = 600.0,
-                     device: Optional[str] = None) -> str:
-    """Run `_rank_main` in `n_devices` processes → rank 0's line (also
+def dryrun_lines(n_devices: int, timeout: float = 600.0,
+                 device: Optional[str] = None) -> List[str]:
+    """Run `_rank_main` in `n_devices` processes → rank 0's lines (also
     printed). `device` None: one card each where there are that many,
     else the CPU. Raises if a process fails."""
     if device is None:
@@ -199,9 +226,15 @@ def dryrun_multichip(n_devices: int, timeout: float = 600.0,
               if p.returncode != 0]
     if failed:
         raise RuntimeError(f"dryrun_multichip({n_devices}) failed: {failed}")
-    line = outs[0][0].strip().splitlines()[-1]
-    print(line)
-    return line
+    lines = outs[0][0].strip().splitlines()
+    print("\n".join(lines))
+    return lines
+
+
+def dryrun_multichip(n_devices: int, timeout: float = 600.0,
+                     device: Optional[str] = None) -> str:
+    """`dryrun_lines` → the last line, the JAX package's."""
+    return dryrun_lines(n_devices, timeout, device)[-1]
 
 
 if __name__ == "__main__":

@@ -43,8 +43,13 @@ def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
                         norm.bias.to(x.dtype), norm.eps)
 
 
-def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+class CastLinear(nn.Linear):
+    """`nn.Linear` computing in its input's dtype over weights of any dtype
+    (fp32 masters under bf16 compute). Called as a module, so a split of
+    its weights (`parallel.mesh.shard_params`) computes it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class SelfAttention(nn.Module):
@@ -60,7 +65,7 @@ class SelfAttention(nn.Module):
         self.heads = heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * hidden, hidden))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * hidden))
-        self.out_proj = nn.Linear(hidden, hidden)
+        self.out_proj = CastLinear(hidden, hidden)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -70,7 +75,7 @@ class SelfAttention(nn.Module):
         q, k, v = (t.reshape(b, s, self.heads, -1).transpose(1, 2)
                    for t in qkv.chunk(3, dim=-1))
         out = F.scaled_dot_product_attention(q, k, v)
-        return _linear(self.out_proj, out.transpose(1, 2).reshape(b, s, d))
+        return self.out_proj(out.transpose(1, 2).reshape(b, s, d))
 
 
 class EncoderBlock(nn.Module):
@@ -83,14 +88,14 @@ class EncoderBlock(nn.Module):
         self.ln_2 = nn.LayerNorm(hidden, eps=LN_EPS)
         # torchvision's MLPBlock numbering: 0 Linear, 1 GELU, 2 Dropout,
         # 3 Linear (its dropout is 0 for vit_b_16)
-        self.mlp = nn.Sequential(nn.Linear(hidden, mlp_dim), nn.GELU(),
-                                 nn.Identity(), nn.Linear(mlp_dim, hidden))
+        self.mlp = nn.Sequential(CastLinear(hidden, mlp_dim), nn.GELU(),
+                                 nn.Identity(), CastLinear(mlp_dim, hidden))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = x.dtype
         x = x + self.self_attention(_layer_norm(self.ln_1, x).to(dtype))
-        h = F.gelu(_linear(self.mlp[0], _layer_norm(self.ln_2, x).to(dtype)))
-        return x + _linear(self.mlp[3], h)
+        h = F.gelu(self.mlp[0](_layer_norm(self.ln_2, x).to(dtype)))
+        return x + self.mlp[3](h)
 
 
 class Encoder(nn.Module):

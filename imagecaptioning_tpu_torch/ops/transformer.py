@@ -22,6 +22,12 @@ reference state-dict (`attention.{values,keys,queries,fc_out}`, `norm1`,
 `norm2`, `feed_forward.0/.2`, `norm`, `transformer_block`,
 `word_embedding`, `position_embedding`, `fc_out`).
 
+Under `parallel.mesh.shard_params` the projections are split over a
+`'model'` axis: each rank computes its heads (the local width over the
+head size) against the global 1/sqrt(embed_size) scale, `fc_out` sums
+the ranks' parts, and probabilities asked for are gathered over all
+heads first.
+
 Cached decode (JAX `:77-115`): the cross-attention keys and values of the
 encoder output are projected once per decode (`Decoder.init_state`), and
 each layer's self-attention keeps preallocated (B, T, h, d) key and value
@@ -83,8 +89,11 @@ class MultiHeadAttention(nn.Module):
         self.fc_out = nn.Linear(embed_size, embed_size)
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
-        return x.reshape(x.shape[0], -1, self.heads,
-                         self.embed_size // self.heads)
+        """(N, L, width) → (N, L, heads, d): all heads, or this rank's
+        where `shard_params` split the projections' columns over
+        `'model'`."""
+        d = self.embed_size // self.heads
+        return x.reshape(x.shape[0], -1, x.shape[-1] // d, d)
 
     def project_kv(self, values: torch.Tensor, keys: torch.Tensor) -> KV:
         """(keys, values) projected and split into heads, (N, L, h, d)."""
@@ -102,8 +111,11 @@ class MultiHeadAttention(nn.Module):
             energy = energy.masked_fill(masked, NEG_INF)
         attn = torch.softmax(energy / math.sqrt(self.embed_size), dim=3)
         out = torch.einsum("nhql,nlhd->nqhd", attn, v)
-        out = self.fc_out(out.reshape(query.shape[0], -1, self.embed_size))
-        return (out, attn) if return_attn else out
+        out = self.fc_out(out.flatten(2))
+        if not return_attn:
+            return out
+        axis = mesh.split_axis(self.queries)
+        return out, (attn if axis is None else axis.gather_out(attn, 1))
 
     def forward(self, values: torch.Tensor, keys: torch.Tensor,
                 query: torch.Tensor, masked: Optional[torch.Tensor] = None,

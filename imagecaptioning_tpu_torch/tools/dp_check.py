@@ -1,5 +1,7 @@
-"""One rank of a data-parallel check: the train steps of a list of cases
-on this rank's rows of each global batch → what they computed, as `.npz`.
+"""One rank of a data-parallel (or split) check: the train steps of a list
+of cases on this rank's rows of each global batch, their parameters split
+over the mesh's 'model' axis where a case says so → what they computed,
+as `.npz`.
 
   RANK=r WORLD_SIZE=n python -m imagecaptioning_tpu_torch.tools.dp_check \\
       SPEC OUT_DIR INIT_METHOD
@@ -36,9 +38,10 @@ from imagecaptioning_tpu_torch.utils.weights import seeded_init_
 class _Recorder:
     """Wraps a `DataParallel`'s draws and an optimizer's `accumulate` to
     keep each draw (this rank's rows, with its batch axis) and each
-    applied update's gradients (summed over the ranks, before the clip)."""
+    applied update's gradients (summed over the ranks, before the clip,
+    whole: `full` joins a split one's shards)."""
 
-    def __init__(self, dp: meshlib.DataParallel, model, optimizer):
+    def __init__(self, dp: meshlib.DataParallel, model, optimizer, full):
         self.draws: List[tuple] = []
         self.grads: List[Dict[str, np.ndarray]] = []
         rand, bernoulli, accumulate = (dp.rand, dp.bernoulli,
@@ -57,7 +60,7 @@ class _Recorder:
         def rec_accumulate():
             done = accumulate()
             if done:
-                self.grads.append({n: p.grad.detach().clone().numpy()
+                self.grads.append({n: full(p.grad).detach().clone().numpy()
                                    for n, p in model.named_parameters()
                                    if p.grad is not None})
             return done
@@ -113,8 +116,9 @@ def initial_model(case: Dict) -> torch.nn.Module:
     return model
 
 
-def run_case(case: Dict, dp: meshlib.DataParallel) -> Dict[str, np.ndarray]:
-    """The case's steps on `dp`'s rows → {name: array}. A case holds:
+def run_case(case: Dict, mesh: meshlib.Mesh) -> Dict[str, np.ndarray]:
+    """The case's steps on the rows of the mesh's data axis → {name:
+    array}. A case holds:
     `kind` ("alexcap", "gt" or "rpn"), `cfg` (the config's fields),
     `vocab`, `seq`, `seed` (`initial_model`), `batches` (the global batch
     of each step: "images", "gt" for AlexCap; "images", "boxes",
@@ -123,11 +127,14 @@ def run_case(case: Dict, dp: meshlib.DataParallel) -> Dict[str, np.ndarray]:
     `teacher_prob` (GT, with `use_curriculum_learning`), `keys` (RPN: the
     sampler's global (positives', negatives') keys of each step),
     `no_dropout` (the VGG classifier's dropout off, as in eval mode),
-    `f64` (the model and the images in fp64) and, read by `main`, `mesh`
+    `f64` (the model and the images in fp64), `split` (AlexCap: the
+    parameters split over the mesh's `'model'` axis by `shard_params`;
+    `split_params` lists those that split) and, read by `main`, `mesh`
     (the mesh's shape and axis names, default all ranks on 'data')."""
     cfg = _config(case)
     # a reducer of its own: the recorder wraps its draws
-    dp = meshlib.DataParallel(dp.index, dp.size, dp.group, dp.stage_on_host)
+    dp = meshlib.DataParallel(mesh.data.index, mesh.data.size,
+                              mesh.data.group, mesh.data.stage_on_host)
     model = initial_model(case)
     if case.get("f64"):
         model.double()
@@ -138,14 +145,20 @@ def run_case(case: Dict, dp: meshlib.DataParallel) -> Dict[str, np.ndarray]:
         for m in model.modules():
             if isinstance(m, torch.nn.Dropout):
                 m.p = 0.0
+    full = (mesh.model.full if mesh.model is not None
+            else (lambda t: t))
+    out: Dict[str, np.ndarray] = {}
+    if case.get("split"):
+        meshlib.shard_params(model, mesh)
+        out["split_params"] = np.array(sorted(
+            n for n, p in model.named_parameters() if meshlib.is_split(p)))
     if case["kind"] == "alexcap":
         opt = optim.make_optimizer(cfg, model, case.get("total_steps", 8))
     else:
         opt = dd.make_dense_optimizer(cfg, model,
                                       case.get("finetune_start", 10))
     gen = torch.Generator().manual_seed(cfg.seed + 1)
-    rec = _Recorder(dp, model, opt)
-    out: Dict[str, np.ndarray] = {}
+    rec = _Recorder(dp, model, opt, full)
     if case["kind"] == "alexcap":
         step = make_train_step(
             model, opt, gen,
@@ -188,7 +201,7 @@ def run_case(case: Dict, dp: meshlib.DataParallel) -> Dict[str, np.ndarray]:
             for k, v in got.items():
                 out[f"loss/{i}/{k}"] = v.numpy()
     for name, t in model.state_dict().items():
-        out[f"state/{name}"] = t.detach().numpy()
+        out[f"state/{name}"] = full(t).detach().numpy()
     for u, grads in enumerate(rec.grads):
         for name, g in grads.items():
             out[f"grad/{u}/{name}"] = g
@@ -253,7 +266,7 @@ def main(argv=None) -> None:
             layout = tuple(map(tuple, case.get("mesh", ((-1,), ("data",)))))
             if layout not in meshes:
                 meshes[layout] = meshlib.create_mesh(*layout)
-            got = compact(run_case(case, meshes[layout].data))
+            got = compact(run_case(case, meshes[layout]))
             np.savez(Path(out_dir) / f"{case['name']}_w{world}_r{rank}.npz",
                      **(got if rank == 0 else digest(got)))
     finally:

@@ -168,9 +168,9 @@ class _Scheduled:
     checkpoint resumes on the same lr."""
 
     def __init__(self, groups, schedule: Callable[[int], float],
-                 betas, eps: float, weight_decay: float):
+                 betas, eps: float, weight_decay: float, **kw):
         super().__init__(groups, lr=schedule(0), betas=betas, eps=eps,
-                         weight_decay=weight_decay)
+                         weight_decay=weight_decay, **kw)
         self.schedule = schedule
         for group in self.param_groups:
             group.setdefault("updates", 0)
@@ -230,18 +230,37 @@ def make_optimizer(cfg, model: torch.nn.Module, total_steps: int):
     return adam(groups, schedule, betas=(cfg.beta1, cfg.beta2), eps=cfg.eps,
                 weight_decay=cfg.weight_decay, every=cfg.grad_accum_steps,
                 accumulated=[(n, p) for n, p in model.named_parameters()
-                             if p.requires_grad])
+                             if p.requires_grad],
+                # torch's multi-tensor update cannot mix a split model's
+                # DTensors and tensors in one call: the per-tensor one
+                **({"foreach": False} if any(
+                    mesh.is_split(p) for p in model.parameters()) else {}))
+
+
+def _norms(grads) -> torch.Tensor:
+    grads = [g.to(torch.promote_types(g.dtype, torch.float32)) for g in grads]
+    return torch.stack(torch._foreach_norm(grads))
 
 
 def global_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
     """The global L2 norm of the parameters' gradients (fp32, fp64 for
     fp64 gradients; those without a gradient count as zeros, as optax's
-    zeros for a frozen encoder do)."""
-    grads = [p.grad.to(torch.promote_types(p.grad.dtype, torch.float32))
-             for p in params if p.grad is not None]
-    if not grads:
+    zeros for a frozen encoder do). A gradient split over `'model'`
+    (`mesh.shard_params`) counts each element once: its shard's squares
+    are summed over the axis, the replicated gradients' taken as they
+    are."""
+    params = [p for p in params if p.grad is not None]
+    if not params:
         return torch.zeros(())
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    split = [p for p in params if mesh.is_split(p.grad)]
+    if not split:
+        return torch.linalg.vector_norm(_norms([p.grad for p in params]))
+    whole = [p.grad for p in params if not mesh.is_split(p.grad)]
+    sq = mesh.split_axis(split[0]).all_sum(
+        _norms([mesh.local(p.grad) for p in split]).square().sum())
+    if whole:
+        sq = sq + _norms(whole).square().sum()
+    return sq.sqrt()
 
 
 @torch.no_grad()
@@ -251,7 +270,7 @@ def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float,
     `max_norm` or more, every gradient becomes g / norm · max_norm (else
     g / 1 · 1, the same bits), with no read of the norm on the host."""
     params = list(params)
-    grads = [p.grad for p in params if p.grad is not None]
+    grads = [mesh.local(p.grad) for p in params if p.grad is not None]
     if not grads:
         return
     if norm is None:
