@@ -226,8 +226,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    source's) and `export --arch` (bitwise the source's covered keys);
    one GT training step after `encoder_init` (K1 and kernel A once); a
    reference LSTMModel `.pth` (ResNet-101) through `import-model` and
-   `infer --model-type lstm`, tokens identical. Preprocessing needs h5py
-   and does not run on the card: the line says whether h5py imports.
+   `infer --model-type lstm`, tokens identical; `dense_driver.setup`
+   restoring a port checkpoint of the default GT config that the phase
+   writes (its forward on a training batch bitwise the source model's,
+   K1 once) and building the RPN and `roi_only` models of the default
+   DenseCap config; the METEOR bridge's CLI (`meteor_bridge.main --jar`)
+   over a stand-in for the jar and `java` (this Python speaking the
+   METEOR-1.5 stdio protocol; no jar or JVM is on the machine), its JSON
+   the stand-in's scores, with `available()` for $METEOR_JAR.
+   Preprocessing needs h5py and does not run on the card: the line says
+   whether h5py imports.
 27. data-parallel training across processes (`parallel/mesh.py`): (a)
    the RPN trainer's entry point under `python -m torch.distributed.run
    --standalone --nproc_per_node=1` on NCCL at full width (2 steps and
@@ -247,7 +255,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (all staged through the host under gloo); (e) `dryrun_multichip(2)`'s
    steps (`dryrun.rank_steps`) in the same world, split as (1, 2), the
    GT and RPN steps launching K1 and B (their trunks frozen, as in JAX's
-   dry run: no kernel A) (`dp_training`).
+   dry run: no kernel A); (f) the dry run's default route at n = 2
+   (`dryrun.route`: gloo with both ranks on the one card here, NCCL with
+   a card a rank where there are 2), printed and asserted, no process
+   started (`dp_training`).
 Every line of phases 4–27 carries the card's name and power limit. The
 kernels line counts each kernel's launches over every path that runs it
 (`launches`, split in `launches_by_path`): the fused forward in both GT
@@ -264,7 +275,8 @@ A; `rpn_trainer_with_evals`: all three; `alexcap_trainer_with_evals`: 0)
 with their evals' share (`gt_trainer_evals`, `rpn_trainer_evals`: K1
 only), phase 25's runs (`evidence_gt`, `evidence_rpn`;
 `evidence_lstm_attention`: 0) and phase 26's (`interchange_gt_infer`:
-K1; `interchange_gt_step_after_encoder_init`: K1 and A;
+K1; `interchange_setup_restore`: K1 once, the restored model's forward;
+`interchange_gt_step_after_encoder_init`: K1 and A;
 `interchange_lstm_infer`: 0), and phase 27's (`dp`: both ranks' steps,
 K1, A and B once each a rank; `dp_torchrun_train_DenseCap`: the
 torchrun trainer's steps and eval; `dp_dryrun_multichip`: both ranks'
@@ -2825,6 +2837,73 @@ INTERCHANGE_IMAGES = 2        # images served from each imported checkpoint
 TORCHVISION_CLASSES = 1000    # the ImageNet heads the converters leave out
 
 
+# a stand-in for `java -jar meteor-1.5.jar - - -stdio -l en -norm`: it
+# ignores its arguments and speaks the METEOR-1.5 stdio protocol (SCORE ->
+# stats line, EVAL -> float), scoring the unigram-overlap F1 of the
+# candidate against its best reference
+FAKE_METEOR = r"""
+import sys
+for line in sys.stdin:
+    parts = [p.strip() for p in line.split('|||')]
+    if parts[0] == 'SCORE':
+        refs, cand = parts[1:-1], parts[-1].split()
+        best = 0.0
+        for ref in refs:
+            r = ref.split()
+            ov = len(set(r) & set(cand))
+            if r and cand:
+                best = max(best, 2.0 * ov / (len(r) + len(cand)))
+        print('%d %.6f' % (len(refs), best), flush=True)
+    elif parts[0] == 'EVAL':
+        print(parts[1].split()[1], flush=True)
+"""
+# (record, the stand-in's score): F1 2·3/10 against the first reference
+METEOR_RECORDS = (
+    ({"candidate": "a b", "references": ["a b"]}, 1.0),
+    ({"candidate": "x", "references": ["y"]}, 0.0),
+    ({"candidate": "a man riding a ||| horse",
+      "references": ["a man rides a horse", "a horse"]}, 0.6))
+
+
+def meteor_bridge_cli(work: Path, card="") -> dict:
+    """Phase 26's METEOR bridge check: the CLI (`meteor_bridge.main`) with
+    `--jar` naming an empty stand-in jar and a stand-in `java` (this
+    Python running FAKE_METEOR) first on PATH, so the bridge starts and
+    drives its subprocess as it would the jar's; its JSON must be the
+    stand-in's scores and their mean. Also `available()` for
+    $METEOR_JAR (no jar is in the repository)."""
+    import os
+
+    from imagecaptioning_tpu_torch.eval import meteor_bridge
+
+    bin_dir = work / "meteor_bin"
+    bin_dir.mkdir()
+    java = bin_dir / "java"
+    java.write_text(f"#!{sys.executable} -u\n{FAKE_METEOR}")
+    java.chmod(0o755)
+    jar, src, dst = (work / "meteor-1.5.jar", work / "meteor_in.json",
+                     work / "meteor_out.json")
+    jar.write_bytes(b"")
+    src.write_text(json.dumps([rec for rec, _ in METEOR_RECORDS]))
+    path = os.environ.get("PATH", "")
+    os.environ["PATH"] = f"{bin_dir}{os.pathsep}{path}"
+    try:
+        stand_in = meteor_bridge.available(str(jar))
+        meteor_bridge.main([str(src), str(dst), "--jar", str(jar)])
+    finally:
+        os.environ["PATH"] = path
+    got = json.loads(dst.read_text())
+    want = [score for _, score in METEOR_RECORDS]
+    res = {"card": card, "available_for_METEOR_JAR": meteor_bridge.available(),
+           "METEOR_JAR": os.environ.get("METEOR_JAR", ""),
+           "available_with_stand_in": stand_in, "cli_json": got}
+    print(f"METEOR bridge: {json.dumps(res)}", flush=True)
+    if not stand_in or got != {"scores": want,
+                               "average_score": sum(want) / len(want)}:
+        raise AssertionError(f"METEOR bridge CLI: {res}")
+    return res
+
+
 def state_differs(got, want) -> list:
     """The keys where two flat state dicts differ: missing on one side,
     or another dtype, shape or bit (compared on `got`'s device). BatchNorm's
@@ -2866,6 +2945,10 @@ def checkpoint_interchange(dev, roi, out_dir: Path, card=""):
     3. `infer --model-type gt --ckpt <imported>` on INTERCHANGE_IMAGES
        images: the seeded model's own serving decode, token for token, K1
        once an image;
+    3b. `dense_driver.setup` restoring a port checkpoint of that model
+       written here: its forward on a training batch bitwise the source
+       model's, K1 once; the RPN and `roi_only` models of the default
+       DenseCap config built by it;
     4. torchvision `vgg16`, `resnet101` and `vit_b_16` `.pth` files (their
        ImageNet heads included), `import --arch` each, `encoder_init` into
        a GT model, an AlexCap LSTM and a ViT-B captioner seeded otherwise:
@@ -2874,7 +2957,8 @@ def checkpoint_interchange(dev, roi, out_dir: Path, card=""):
     5. one GT training step of the model after `encoder_init`: K1 and
        kernel A once each;
     6. a reference LSTMModel `.pth` (ResNet-101) → `import-model` → `infer
-       --model-type lstm`: the seeded model's decode, token for token.
+       --model-type lstm`: the seeded model's decode, token for token;
+    7. the METEOR bridge's CLI over a stand-in (`meteor_bridge_cli`).
     Files go under `out_dir`/interchange and are deleted as the phase goes
     (the GT files are 0.6 GB each). Whether h5py imports is printed:
     preprocessing writes HDF5, so it does not run on a machine without
@@ -2887,11 +2971,14 @@ def checkpoint_interchange(dev, roi, out_dir: Path, card=""):
 
     from imagecaptioning_tpu_torch import convert_checkpoint as cc
     from imagecaptioning_tpu_torch import infer
-    from imagecaptioning_tpu_torch.config.dense_configs import get_gt_config
+    from imagecaptioning_tpu_torch.config.dense_configs import (
+        get_densecap_config, get_gt_config)
     from imagecaptioning_tpu_torch.data.tokenizer import Vocab
-    from imagecaptioning_tpu_torch.data.vg_loader import VGDataLoader
+    from imagecaptioning_tpu_torch.data.vg_loader import (VGDataLoader,
+                                                          normalize_images)
     from imagecaptioning_tpu_torch.models.captioners import build_model
     from imagecaptioning_tpu_torch.train import dense_driver as dd
+    from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
     from imagecaptioning_tpu_torch.utils import weights
     from imagecaptioning_tpu_torch.utils.pretrained import apply_encoder_init
 
@@ -2901,7 +2988,7 @@ def checkpoint_interchange(dev, roi, out_dir: Path, card=""):
     f = {name: str(work / name) for name in (
         "gt_reference.pth", "gt.ckpt", "gt.npz", "gt_exported.pth",
         "vgg16.pth", "resnet101.pth", "vit_b_16.pth", "lstm_reference.pth",
-        "lstm.ckpt", "vg_dicts.json", "face_dicts.json")}
+        "lstm.ckpt", "vg_dicts.json", "face_dicts.json", "gt_setup.ckpt")}
     seconds, t_lap = {}, [time.perf_counter()]
 
     def lap(name):
@@ -3004,6 +3091,64 @@ def checkpoint_interchange(dev, roi, out_dir: Path, card=""):
     del served
     lap("3 infer GT")
 
+    # 3b. dense_driver.setup: the GT model restored from a port checkpoint
+    # written here, its forward on a training batch the source's bit for
+    # bit (K1 once); the RPN and roi_only models of the default config
+    arrays, info = make_train_data(np.random.RandomState(SEED + 2))
+    loader = VGDataLoader(arrays=arrays, info=info)
+    batch = dd.to_device(next(loader.padded_batches(0, TRAIN_BATCH,
+                                                    N_REGIONS)), dev)
+    ckptlib.save_checkpoint(f["gt_setup.ckpt"],
+                            {"model": gt_src.state_dict()})
+    restored, state = dd.setup(
+        gt_cfg.replace(checkpoint_start_from=f["gt_setup.ckpt"]), VOCAB,
+        SEQ, dev)
+    restored.eval()
+
+    @torch.no_grad()
+    def forward(model):
+        images, boxes, labels, _ = batch
+        return model(normalize_images(images, dtype=model.compute_dtype),
+                     boxes, labels)
+    want_out = forward(gt_src)
+    zero_roi_counts(roi)
+    got_out = forward(restored)
+    launches = roi_counts(roi)
+    built = {}
+    rpn_cfg = get_densecap_config()
+    for name, cfg in (("rpn", rpn_cfg),
+                      ("roi_only", rpn_cfg.replace(roi_only=True))):
+        model, st = dd.setup(cfg, VOCAB, SEQ, dev)
+        built[name] = {"family": type(model).__name__,
+                       "with_captioning": model.with_captioning,
+                       "state": st,
+                       "params_m": sum(p.numel() for p in
+                                       model.parameters()) / 1e6,
+                       "device": str(next(model.parameters()).device)}
+        del model
+    out["setup"] = {
+        "restored_family": type(restored).__name__,
+        "restored_tensors": len(state["model"]),
+        "forward_bitwise": bool(
+            torch.equal(got_out.logits, want_out.logits)
+            and torch.equal(got_out.region_codes, want_out.region_codes)),
+        "logits_shape": list(got_out.logits.shape), "launches": launches,
+        "built": built}
+    if (not out["setup"]["forward_bitwise"]
+            or launches["roi_align_batch_chw"] != 1
+            or type(restored).__name__ != "GTDenseCaptioner"
+            or built["rpn"] != {**built["rpn"], "family": "DenseCapRPN",
+                                "with_captioning": True, "state": None}
+            or built["roi_only"] != {**built["roi_only"],
+                                     "family": "DenseCapRPN",
+                                     "with_captioning": False,
+                                     "state": None}):
+        raise AssertionError(f"dense_driver.setup: {out['setup']}")
+    Path(f["gt_setup.ckpt"]).unlink()
+    del restored, state, want_out, got_out
+    torch.cuda.empty_cache()
+    lap("3b setup()")
+
     # 4. torchvision backbones: import, encoder_init, export
     lstm_cfg, vit_cfg = alexcap_cfg("lstm"), alexcap_cfg("vitb")
     lstm_src = weights.seeded_init_(build_model(lstm_cfg, ALEX_VOCAB,
@@ -3088,16 +3233,12 @@ def checkpoint_interchange(dev, roi, out_dir: Path, card=""):
     del tv, sd
     lap("4 checks and export --arch")
 
-    # 5. a GT training step after encoder_init
-    arrays, info = make_train_data(np.random.RandomState(SEED + 2))
-    loader = VGDataLoader(arrays=arrays, info=info)
+    # 5. a GT training step after encoder_init, on 3b's batch
     opt = dd.make_dense_optimizer(gt_cfg, gt_dst, len(loader.train_ix))
     gen_dev = torch.Generator(dev)
     gen_dev.manual_seed(SEED + 1)
     step = dd.make_gt_train_step(gt_dst, opt, gt_cfg.use_curriculum_learning,
                                  gen_dev)
-    batch = dd.to_device(next(loader.padded_batches(0, TRAIN_BATCH,
-                                                    N_REGIONS)), dev)
     zero_roi_counts(roi)
     loss = float(step(*batch, 1.0))
     launches = roi_counts(roi)
@@ -3128,9 +3269,13 @@ def checkpoint_interchange(dev, roi, out_dir: Path, card=""):
         raise AssertionError(f"infer --model-type lstm from the imported "
                              f"checkpoint: {out['lstm_infer']}")
     del served, lstm_src, lstm_dst
-    shutil.rmtree(work)
     torch.cuda.empty_cache()
     lap("6 LSTM import-model and infer")
+
+    # 7. the METEOR bridge's CLI
+    out["meteor_bridge"] = meteor_bridge_cli(work, card)
+    shutil.rmtree(work)
+    lap("7 METEOR bridge")
     out["seconds"] = seconds
     print(f"checkpoint interchange: {json.dumps(out)}", flush=True)
     return out
@@ -3496,14 +3641,28 @@ def dp_training(dev, roi, out_dir: Path, card="") -> dict:
         rank's collectives by axis, and whether they went through the
         host;
     (e) `dryrun.rank_steps(DP_WORLD)` in the same world: its two lines
-        and both ranks' ROI launches.
+        and both ranks' ROI launches;
+    (f) the dry run's default route at n = DP_WORLD (`dryrun.route`):
+        gloo with the ranks sharing this machine's cards where there are
+        fewer than DP_WORLD, NCCL with a card a rank otherwise; printed
+        and asserted, nothing started.
     Rank 0 runs each one-process step after the world's, from the same
     weights; it draws the same dropout masks and sampler keys (the ranks
     draw the global batch's and keep their rows)."""
     import os
     import shutil
 
+    from imagecaptioning_tpu_torch import dryrun
+
     res = {"card": card}
+    devices, backend, line = dryrun.route(DP_WORLD)
+    count = torch.cuda.device_count()
+    res["dryrun_default_route"] = {"cards": count, "devices": devices,
+                                   "backend": backend, "line": line}
+    print(f"dryrun_multichip({DP_WORLD}) default {line} [{card}]",
+          flush=True)
+    route_ok = (devices == [f"cuda:{r % count}" for r in range(DP_WORLD)]
+                and backend == ("nccl" if count >= DP_WORLD else "gloo"))
     t0 = time.perf_counter()
     run_dir = out_dir / "dp_torchrun"
     shutil.rmtree(run_dir, ignore_errors=True)
@@ -3622,6 +3781,7 @@ def dp_training(dev, roi, out_dir: Path, card="") -> dict:
     if not (res["rpn"]["ok"] and res["alexcap"]["ok"]
             and res["roi_once_a_rank"] and res["mesh"] == {"data": DP_WORLD}
             and all(a[k] > 0 for k in DP_KERNELS) and split_ok and dry_ok
+            and route_ok
             and res["split_mesh"] == {"data": 1, "model": DP_WORLD}):
         raise AssertionError(f"data-parallel training failed: {res}")
     return res
@@ -3854,6 +4014,7 @@ def main() -> int:
         "evidence_gt": evidence["gt"]["launches"],
         "evidence_rpn": evidence["rpn"]["launches"],
         "interchange_gt_infer": interchange["gt_infer"]["launches"],
+        "interchange_setup_restore": interchange["setup"]["launches"],
         "interchange_gt_step_after_encoder_init": interchange[
             "gt_train_step"]["launches"],
         # phase 27: both ranks' steps of the gloo world, and the torchrun

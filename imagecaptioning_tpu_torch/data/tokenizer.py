@@ -100,18 +100,22 @@ class Vocab:
     def from_dicts_json(cls, info: Dict) -> "Vocab":
         return cls(info["token_to_idx"], info["idx_to_token"])
 
-    def encode_caption(self, caption: str, seq_length: int) -> np.ndarray:
-        """Caption → int32 row of length seq_length, 0-padded, unknown
+    def encode_tokens(self, tokens: Sequence[str],
+                      seq_length: int) -> np.ndarray:
+        """Tokens → int32 row of length seq_length, 0-padded, unknown
         tokens → '<UNK>' id (reference `encode_captions`,
         `my_model_preprocess.py:114-131`)."""
         unk = self.token_to_idx.get("<UNK>")
         row = np.zeros(seq_length, dtype=np.int32)
-        for i, tok in enumerate(words_preprocess(caption)[:seq_length]):
+        for i, tok in enumerate(tokens[:seq_length]):
             idx = self.token_to_idx.get(tok, unk)
             if idx is None:
                 raise KeyError(f"token {tok!r} not in vocab and no <UNK>")
             row[i] = idx
         return row
+
+    def encode_caption(self, caption: str, seq_length: int) -> np.ndarray:
+        return self.encode_tokens(words_preprocess(caption), seq_length)
 
     def decode_row(self, ids: Sequence[int]) -> str:
         """Int ids → string; stops at END or NULL, space-joined

@@ -1,5 +1,5 @@
 """Image preprocessing on the device — port of
-`imagecaptioning_tpu/data/transforms.py:28-70`.
+`imagecaptioning_tpu/data/transforms.py:28-74`.
 
 The reference applies torchvision's `ResNet101_Weights.IMAGENET1K_V2
 .transforms()` on the host per batch (`AlexCap/MyDataLoader.py:38,86`):
@@ -69,3 +69,11 @@ def resnet_v2_preprocess(images_u8: torch.Tensor, resize_size: int = 232,
     x = images_u8.to(torch.promote_types(dtype, torch.float32)) / 255.0
     x = center_crop(resize_short_side(x, resize_size), crop_size)
     return normalize(x).to(dtype).contiguous()
+
+
+def imagenet_preprocess(images_u8: torch.Tensor,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """ToTensor + ImageNet normalize (the DenseCap path), no resize: uint8
+    (B, H, W, 3) → `dtype`, computed in `dtype` as the JAX function does,
+    on the tensor's own device."""
+    return normalize(images_u8.to(dtype) / 255.0)

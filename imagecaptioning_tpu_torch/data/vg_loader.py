@@ -12,8 +12,17 @@ batches (square-padded uint8 images, regions padded or truncated to
 in-memory arrays (`arrays=`, `info=`) need nothing beyond numpy. A
 batch's images come from the native multi-threaded gather
 (`native.gather_records`) where the store is a uint8 array in RAM, as in
-the JAX loader. The reference's one-image `get_batch`
-API and shuffling are not ported: the GT trainer and eval use neither.
+the JAX loader.
+
+The reference's own API is here too, as in the JAX loader: construction
+from an `opt` mapping (`data_h5`, `data_json`, `debug_max_train_images`),
+`iterators` per split and a numpy `RandomState(seed)`, `getImageMaxSize`,
+`getVocab`, `reset_iterator`, `decodeSequence`, the one-image
+`get_batch(opt, idx)` (the image cropped to its true size and
+ImageNet-normalized on the host, with its region slab and `info_table`,
+`DataLoader.py:107-167`) and `padded_batches(shuffle=True)`. The same
+seed draws the same images and permutations as the JAX loader's. The
+trainers use neither the one-image API nor the shuffle.
 """
 
 from __future__ import annotations
@@ -36,40 +45,61 @@ class VGDataLoader:
     """Loads VG-regions HDF5 + dicts JSON (the reference preprocessor's
     schema), or the same arrays held in memory."""
 
-    def __init__(self, *, data_h5: Optional[str] = None,
+    def __init__(self, opt=None, *, data_h5: Optional[str] = None,
                  data_json: Optional[str] = None,
-                 arrays: Optional[Dict] = None, info: Optional[Dict] = None):
+                 arrays: Optional[Dict] = None, info: Optional[Dict] = None,
+                 cache_images: bool = True, seed: int = 123,
+                 debug_max_train_images: int = -1):
+        if opt is not None:
+            data_h5 = data_h5 or opt.get("data_h5")
+            data_json = data_json or opt.get("data_json")
+            debug_max_train_images = opt.get("debug_max_train_images", -1)
         if arrays is None:
             import h5py
             with open(data_json, "r") as f:
                 info = json.load(f)
-            with h5py.File(data_h5, "r") as f5:
-                arrays = {k: f5["/" + k][:] for k in (
-                    "images", "boxes", "image_heights", "image_widths",
-                    "img_to_first_box", "img_to_last_box", "labels",
-                    "split")}
+            f5 = h5py.File(data_h5, "r")
+            arrays = {k: f5["/" + k][:] for k in (
+                "box_to_img", "boxes", "image_heights", "image_widths",
+                "img_to_first_box", "img_to_last_box", "labels", "lengths",
+                "original_heights", "original_widths", "split")}
+            if cache_images:
+                arrays["images"] = f5["/images"][:]
+                f5.close()
+            else:
+                arrays["images"] = f5["/images"]      # read image by image
         if info is None:
             raise ValueError("in-memory arrays need their dicts (`info`)")
 
         self.info = info
         self.vocab = Vocab.from_dicts_json(info)
         self.vocab_size = self.vocab.vocab_size
+        self.idx_to_token = self.vocab.idx_to_token
+        self.debug_max_train_images = debug_max_train_images
 
         self.images = arrays["images"]
         self.boxes = np.asarray(arrays["boxes"], np.float32)
         self.labels = np.asarray(arrays["labels"], np.int32)
+        self.lengths = np.asarray(arrays["lengths"], np.int32)
         self.split = np.asarray(arrays["split"], np.int32)
         self.image_heights = np.asarray(arrays["image_heights"], np.int32)
         self.image_widths = np.asarray(arrays["image_widths"], np.int32)
+        self.original_heights = np.asarray(arrays["original_heights"],
+                                           np.int32)
+        self.original_widths = np.asarray(arrays["original_widths"], np.int32)
         # 1-indexed slab pointers (preprocess.py:185-223)
         self.img_to_first_box = np.asarray(arrays["img_to_first_box"],
                                            np.int64)
         self.img_to_last_box = np.asarray(arrays["img_to_last_box"], np.int64)
+        self.box_to_img = np.asarray(arrays["box_to_img"], np.int64)
 
         shp = self.images.shape
         if len(shp) != 4 or shp[1] != shp[2]:
             raise ValueError(f"/images should be (N, S, S, 3), got {shp}")
         self.num_images = shp[0]
+        self.num_channels = shp[3]
+        self.max_image_size = shp[2]
+        self.num_regions = self.boxes.shape[0]
         self.seq_length = int(self.labels.shape[1])
         self.max_regions_per_image = int(
             (self.img_to_last_box - self.img_to_first_box + 1).max())
@@ -78,12 +108,32 @@ class VGDataLoader:
         for i in range(self.num_images):
             self.split_ix[int(self.split[i])].append(i)
         self.train_ix = self.split_ix[0]
+        self.val_ix = self.split_ix[1]
+        self.test_ix = self.split_ix[2]
+        self.iterators = {0: 0, 1: 0, 2: 0}
+        self._rng = np.random.RandomState(seed)
+
+    # --- reference API ----------------------------------------------------
+    def getImageMaxSize(self) -> int:
+        return self.max_image_size
 
     def getSeqLength(self) -> int:
         return self.seq_length
 
     def getVocabSize(self) -> int:
         return self.vocab_size
+
+    def getVocab(self):
+        return self.info["idx_to_token"]
+
+    def reset_iterator(self, split_val: int) -> None:
+        if split_val not in (0, 1, 2):
+            raise ValueError(f"split must be 0, 1 or 2, got {split_val}")
+        self.iterators[split_val] = 0
+
+    def decodeSequence(self, seq):
+        """Int matrix → list of caption strings (DataLoader.py:92-105)."""
+        return self.vocab.decode_sequence(np.asarray(seq))
 
     def region_slab(self, ix: int):
         """(boxes (R,4), labels (R,T)) for image `ix` — the 1-indexed slab
@@ -95,6 +145,49 @@ class VGDataLoader:
     def _image_u8(self, ix: int) -> np.ndarray:
         return np.asarray(self.images[int(ix)])
 
+    def get_batch(self, opt, idx: int = -1):
+        """One image, reference semantics: cropped to its true (H, W),
+        scaled to [0,1] and ImageNet-normalized, with its region slab.
+        `opt["iterate"]` (default True) walks the split (`opt["split"]`,
+        default 0) in order and wraps at its end (or at
+        `debug_max_train_images`); otherwise the image is `idx`, or a draw
+        of the loader's `RandomState` where `idx` is -1. Returns (img
+        (1,H,W,3) f32, boxes (1,R,4), labels (1,R,T), info_table), numpy."""
+        split_val = opt.get("split", 0) if hasattr(opt, "get") else 0
+        iterate = opt.get("iterate", True) if hasattr(opt, "get") else True
+        split_ix = self.split_ix[split_val]
+        if not split_ix:
+            raise ValueError(f"split {split_val} is empty")
+
+        max_index = len(split_ix)
+        if self.debug_max_train_images > 0:
+            max_index = self.debug_max_train_images
+        if iterate:
+            ri = self.iterators[split_val]
+            ri_next = ri + 1
+            if ri_next >= max_index:
+                ri_next = 0
+            self.iterators[split_val] = ri_next
+        else:
+            ri = int(self._rng.randint(max_index)) if idx == -1 else idx
+        ix = split_ix[ri]
+
+        h, w = int(self.image_heights[ix]), int(self.image_widths[ix])
+        img = self._image_u8(ix)[:h, :w].astype(np.float32) / 255.0
+        img = (img - IMAGENET_MEAN) / IMAGENET_STD
+        boxes, labels = self.region_slab(ix)
+
+        filename = self.info.get("idx_to_filename", {}).get(str(ix + 1))
+        info_table = [{
+            "filename": filename,
+            "split_bounds": [ri + 1, len(split_ix)],
+            "width": w, "height": h,
+            "ori_width": int(self.original_widths[ix]),
+            "ori_height": int(self.original_heights[ix]),
+        }]
+        return img[None], boxes[None], labels[None], info_table
+
+    # --- batched feeding --------------------------------------------------
     def padded_example(self, ix: int, max_regions: int):
         """Fixed-shape example: square-padded uint8 image + padded region
         slab with mask. Box coords stay in resized-image space."""
@@ -126,13 +219,17 @@ class VGDataLoader:
 
     def padded_batches(self, split_val: int, batch_size: int,
                        max_regions: Optional[int] = None,
+                       shuffle: bool = False,
                        start: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """Yield dict batches of stacked fixed-shape examples covering the
-        split once, in order (ragged tail dropped). `start` skips that many
-        leading images — the resume cursor, the reference's
+        split once (ragged tail dropped): in order, or with `shuffle` in a
+        permutation drawn from the loader's `RandomState`. `start` skips
+        that many leading images — the resume cursor, the reference's
         `loader.iterators[0] = iter % len(train_ix)` (traingt.py:51)."""
         rm = max_regions or self.max_regions_per_image
         ix = np.asarray(self.split_ix[split_val])
+        if shuffle:
+            ix = self._rng.permutation(ix)
         if start:
             ix = ix[start % len(ix):]
         for s in range(0, len(ix) - batch_size + 1, batch_size):

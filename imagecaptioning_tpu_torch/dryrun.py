@@ -4,9 +4,14 @@
 `entry()` returns the forward-loss step of the flagship model, the ViT-B/16
 captioner (the reference's heaviest family, `train_ViTB.py`), with its
 arguments. `dryrun_multichip(n)` starts n processes, a process group over
-them (gloo on the CPU, or NCCL with one card each where there are n) and
-a mesh over ('data', 'model') of (n/2, 2) where n is even, (n, 1) where
-it is odd, as the JAX dry run lays out its devices. Then one train step
+them and a mesh over ('data', 'model') of (n/2, 2) where n is even, (n,
+1) where it is odd, as the JAX dry run lays out its devices. The ranks
+run where `route` puts them: one card each under NCCL where there are n
+cards; sharing the cards round-robin under gloo where there are fewer
+(on a one-card machine both ranks of `multichip 2` run on `cuda:0`); on
+the CPU under gloo only when the caller passes `device="cpu"`. Without a
+card and without `device="cpu"` it raises, as the JAX dry run asserts
+its device count. Then one train step
 on each rank for five families at tiny shapes: the ViT captioner, the
 Transformer captioner and the attention-LSTM over a ResNet trunk
 (BatchNorm's statistics over the global batch), their parameters split
@@ -20,7 +25,7 @@ package's line with the mesh and the global losses. `rank_steps` runs the
 same on the ranks of a process group that exists already (on one card
 under gloo, say).
 
-  python -m imagecaptioning_tpu_torch.dryrun [multichip [n]]
+  python -m imagecaptioning_tpu_torch.dryrun [multichip [n] [--device cpu]]
 """
 
 from __future__ import annotations
@@ -176,12 +181,14 @@ def rank_steps(n: int, dev) -> List[str]:
             + " OK"]
 
 
-def _rank_main(n: int, init_method: str, device: str) -> None:
+def _rank_main(n: int, init_method: str, device: str,
+               backend: str) -> None:
     """One rank of `dryrun_multichip`: `rank_steps`; rank 0 prints its
     lines."""
     from imagecaptioning_tpu_torch.parallel import mesh as meshlib
 
-    dev = meshlib.init_distributed(device, init_method=init_method)
+    dev = meshlib.init_distributed(device, backend=backend,
+                                   init_method=init_method)
     try:
         for line in rank_steps(n, dev):
             print(line, flush=True)
@@ -189,27 +196,53 @@ def _rank_main(n: int, init_method: str, device: str) -> None:
         meshlib.shutdown()
 
 
+def route(n_devices: int, device: Optional[str] = None
+          ) -> Tuple[List[str], str, str]:
+    """Where the dry run's ranks run → (each rank's device, the backend, a
+    line naming the route). `device` None or "cuda": one card a rank under
+    NCCL where there are `n_devices` cards or more; on fewer cards every
+    rank on `cuda:{rank % count}` under gloo (collectives staged through
+    the host, as `parallel.mesh` does on a shared card); raises where there
+    is no card. `device="cpu"`: every rank on the CPU under gloo."""
+    if device == "cpu":
+        return ["cpu"] * n_devices, "gloo", (
+            f"route: {n_devices} ranks on the CPU, gloo (device='cpu')")
+    if device not in (None, "cuda"):
+        raise ValueError(f"device must be None, 'cuda' or 'cpu', got "
+                         f"{device!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"dryrun_multichip({n_devices}) needs a CUDA card and CUDA is "
+            "not available; pass device='cpu' to run on the CPU")
+    count = torch.cuda.device_count()
+    devices = [f"cuda:{rank % count}" for rank in range(n_devices)]
+    if count >= n_devices:
+        return devices, "nccl", (
+            f"route: {n_devices} ranks on {n_devices} cards, nccl")
+    return devices, "gloo", (
+        f"route: {n_devices} ranks sharing {count} card(s) "
+        f"({', '.join(devices)}), gloo")
+
+
 def dryrun_lines(n_devices: int, timeout: float = 600.0,
                  device: Optional[str] = None) -> List[str]:
-    """Run `_rank_main` in `n_devices` processes → rank 0's lines (also
-    printed). `device` None: one card each where there are that many,
-    else the CPU. Raises if a process fails."""
-    if device is None:
-        device = ("cuda" if torch.cuda.is_available()
-                  and torch.cuda.device_count() >= n_devices else "cpu")
+    """Run `_rank_main` in `n_devices` processes on `route`'s devices →
+    rank 0's lines (also printed, after the route's line). Raises if a
+    process fails."""
+    devices, backend, line = route(n_devices, device)
+    print(f"dryrun_multichip({n_devices}): {line}", flush=True)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with tempfile.TemporaryDirectory() as tmp:
         init = f"file://{os.path.join(tmp, 'rendezvous')}"
         procs = []
-        for rank in range(n_devices):
+        for rank, dev in enumerate(devices):
             env = {"OMP_NUM_THREADS": "2", **os.environ, "RANK": str(rank),
                    "WORLD_SIZE": str(n_devices), "LOCAL_RANK": str(rank),
                    "PYTHONPATH": os.pathsep.join(
                        [root, os.environ.get("PYTHONPATH", "")])}
-            dev = f"cuda:{rank}" if device == "cuda" else device
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "imagecaptioning_tpu_torch.dryrun",
-                 "rank", str(n_devices), init, dev],
+                 "rank", str(n_devices), init, dev, backend],
                 env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True))
         outs = []
@@ -237,11 +270,30 @@ def dryrun_multichip(n_devices: int, timeout: float = 600.0,
     return dryrun_lines(n_devices, timeout, device)[-1]
 
 
-if __name__ == "__main__":
-    if len(sys.argv) > 1 and sys.argv[1] == "rank":
-        _rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
-    elif len(sys.argv) > 1 and sys.argv[1] == "multichip":
-        dryrun_multichip(int(sys.argv[2]) if len(sys.argv) > 2 else 2)
+def main(argv: Optional[List[str]] = None) -> None:
+    """`[multichip [n] [--device cpu|cuda]]`, or one rank of it (`rank n
+    init device backend`, as `dryrun_lines` starts them); nothing: run
+    `entry()` on the card."""
+    import argparse
+
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["rank"]:
+        _rank_main(int(argv[1]), argv[2], argv[3], argv[4])
+        return
+    p = argparse.ArgumentParser(prog="python -m "
+                                "imagecaptioning_tpu_torch.dryrun")
+    p.add_argument("mode", nargs="?", choices=("multichip",))
+    p.add_argument("n", nargs="?", type=int, default=2)
+    p.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="cpu: every rank on the CPU (gloo); default: the "
+                   "cards, raising where there is none")
+    args = p.parse_args(argv)
+    if args.mode == "multichip":
+        dryrun_multichip(args.n, device=args.device)
     else:
-        fn, args = entry()
-        print("entry() ran; loss =", float(fn(*args)))
+        fn, fargs = entry(args.device)
+        print("entry() ran; loss =", float(fn(*fargs)))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
 """ResNet feature trunk — port of
 `imagecaptioning_tpu/models/backbones/resnet.py` (`Bottleneck`,
-`ResNetFeatures`).
+`ResNetFeatures`, `resnet101_features`, `resnet50_features`).
 
 The reference encoder is torchvision's `resnet101(IMAGENET1K_V2)` without
 its pool and classifier, `nn.Sequential(*resnet.children())[:-2]`
@@ -156,3 +156,15 @@ class ResNetFeatures(nn.Sequential):
             for block in stage:
                 x = block(x, train, dtype)
         return x.permute(0, 2, 3, 1)
+
+
+def resnet101_features(compute_dtype: Optional[torch.dtype] = None
+                       ) -> ResNetFeatures:
+    return ResNetFeatures(stage_sizes=(3, 4, 23, 3),
+                          compute_dtype=compute_dtype)
+
+
+def resnet50_features(compute_dtype: Optional[torch.dtype] = None
+                      ) -> ResNetFeatures:
+    return ResNetFeatures(stage_sizes=(3, 4, 6, 3),
+                          compute_dtype=compute_dtype)

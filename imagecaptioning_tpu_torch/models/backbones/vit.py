@@ -1,5 +1,5 @@
 """ViT-B/16 encoder — port of `imagecaptioning_tpu/models/backbones/vit.py`
-(`ViTBlock`, `ViTEncoder`).
+(`ViTBlock` as `EncoderBlock`, `ViTEncoder`, `vit_b16`).
 
 The reference encoder is torchvision's `vit_b_16` (`AlexCap/
 VitbModel.py:156-166`): a 16×16 stride-16 convolution patchifies, a
@@ -22,6 +22,13 @@ normalises in fp32 and the residual stream stays in `compute_dtype`, as
 flax's LayerNorm over bf16 activations with fp32 parameters does; the
 output is fp32. The attention is `F.scaled_dot_product_attention` (the
 JAX package computes it with flax, outside any Pallas kernel).
+
+`dropout` acts where the JAX module's does: after the position add, and
+in each block after the attention, after the GELU and after the MLP's
+second linear; only with `train`, its masks drawn from the `generator`
+passed to `forward` (flax's `deterministic=not train`). It is 0 by
+default (torchvision's `vit_b_16`), and the captioner keeps its encoder
+deterministic, as the JAX captioner does.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from imagecaptioning_tpu_torch.ops.transformer import dropout as _dropout
 
 LN_EPS = 1e-6
 
@@ -79,57 +88,70 @@ class SelfAttention(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    """Pre-LN block: x + attn(ln_1(x)), then + mlp(ln_2(x))."""
+    """Pre-LN block: x + attn(ln_1(x)), then + mlp(ln_2(x)), with dropout
+    at rate `dropout` after the attention and after each MLP linear when
+    `train`."""
 
-    def __init__(self, hidden: int, heads: int, mlp_dim: int):
+    def __init__(self, hidden: int, heads: int, mlp_dim: int,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.ln_1 = nn.LayerNorm(hidden, eps=LN_EPS)
         self.self_attention = SelfAttention(hidden, heads)
         self.ln_2 = nn.LayerNorm(hidden, eps=LN_EPS)
         # torchvision's MLPBlock numbering: 0 Linear, 1 GELU, 2 Dropout,
-        # 3 Linear (its dropout is 0 for vit_b_16)
+        # 3 Linear (the dropouts act in forward)
         self.mlp = nn.Sequential(CastLinear(hidden, mlp_dim), nn.GELU(),
                                  nn.Identity(), CastLinear(mlp_dim, hidden))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = x.dtype
-        x = x + self.self_attention(_layer_norm(self.ln_1, x).to(dtype))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        dtype, p = x.dtype, self.dropout
+        h = self.self_attention(_layer_norm(self.ln_1, x).to(dtype))
+        x = x + _dropout(h, p, train, generator)
         h = F.gelu(self.mlp[0](_layer_norm(self.ln_2, x).to(dtype)))
-        return x + self.mlp[3](h)
+        h = self.mlp[3](_dropout(h, p, train, generator))
+        return x + _dropout(h, p, train, generator)
 
 
 class Encoder(nn.Module):
     """torchvision's `vit.encoder`: `pos_embedding`, `layers`, `ln`."""
 
     def __init__(self, seq_length: int, num_layers: int, heads: int,
-                 hidden: int, mlp_dim: int):
+                 hidden: int, mlp_dim: int, dropout: float = 0.0):
         super().__init__()
         self.pos_embedding = nn.Parameter(
             torch.empty(1, seq_length, hidden).normal_(std=0.02))
         self.layers = nn.Sequential(OrderedDict(
-            (f"encoder_layer_{i}", EncoderBlock(hidden, heads, mlp_dim))
+            (f"encoder_layer_{i}",
+             EncoderBlock(hidden, heads, mlp_dim, dropout))
             for i in range(num_layers)))
         self.ln = nn.LayerNorm(hidden, eps=LN_EPS)
 
 
 class ViTEncoder(nn.Module):
     """Patchify + class token + position embeddings + blocks + final LN:
-    NHWC images (B, S, S, 3) → (B, 1 + (S/P)², hidden) fp32."""
+    NHWC images (B, S, S, 3) → (B, 1 + (S/P)², hidden) fp32. Dropout at
+    rate `dropout` acts only with `train`."""
 
     def __init__(self, image_size: int = 224, patch_size: int = 16,
                  num_layers: int = 12, num_heads: int = 12,
                  hidden_dim: int = 768, mlp_dim: int = 3072,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 dropout: float = 0.0):
         super().__init__()
         self.patch_size = patch_size
         self.hidden_dim = hidden_dim
         self.compute_dtype = compute_dtype
+        self.dropout = dropout
         self.conv_proj = nn.Conv2d(3, hidden_dim, patch_size, patch_size)
         self.class_token = nn.Parameter(torch.zeros(1, 1, hidden_dim))
         self.encoder = Encoder((image_size // patch_size) ** 2 + 1,
-                               num_layers, num_heads, hidden_dim, mlp_dim)
+                               num_layers, num_heads, hidden_dim, mlp_dim,
+                               dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dtype = self.compute_dtype or self.conv_proj.weight.dtype
         conv = self.conv_proj
         x = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), conv.weight.to(dtype),
@@ -137,6 +159,13 @@ class ViTEncoder(nn.Module):
         x = x.flatten(2).transpose(1, 2)                    # (B, N, D)
         cls = self.class_token.to(dtype).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.encoder.pos_embedding.to(dtype)
+        x = _dropout(x, self.dropout, train, generator)
         for block in self.encoder.layers:
-            x = block(x)
+            x = block(x, train, generator)
         return _layer_norm(self.encoder.ln, x)
+
+
+def vit_b16(compute_dtype: Optional[torch.dtype] = None,
+            dropout: float = 0.0) -> ViTEncoder:
+    """ViT-B/16 at 224² (torchvision's `vit_b_16`)."""
+    return ViTEncoder(compute_dtype=compute_dtype, dropout=dropout)

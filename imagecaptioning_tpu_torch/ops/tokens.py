@@ -1,5 +1,5 @@
 """Token-id conventions and target construction (port of
-`imagecaptioning_tpu/ops/tokens.py:26-72`).
+`imagecaptioning_tpu/ops/tokens.py:26-77`).
 
 The AlexCap family and the GT LSTM head use NULL=0, START=V+1, END=V+2
 (LanguageModule.py:39-41). The DenseCap transformers index sos=V-2 and
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 
@@ -64,3 +65,8 @@ def decoder_target(gt: torch.Tensor, end_token: int,
 def sequence_mask(targets: torch.Tensor, null_token: int = 0) -> torch.Tensor:
     """Loss mask: positions where the target is not NULL."""
     return targets != null_token
+
+
+def caption_lengths(gt) -> np.ndarray:
+    """Number of non-NULL tokens per row (host-side helper)."""
+    return (np.asarray(gt) != 0).sum(axis=1)

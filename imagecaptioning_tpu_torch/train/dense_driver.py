@@ -232,6 +232,27 @@ def build_rpn_model(cfg: DenseConfig, vocab_size: int, seq_length: int,
             param_dtype=DTYPES[cfg.param_dtype])
 
 
+def setup(cfg: DenseConfig, vocab_size: int, seq_length: int,
+          device=None):
+    """The reference's `SetupModule.setup(opt)` (DenseCap/models.py:10-42),
+    as the JAX driver's `setup`: the GT model for `model_type="gt"`, else
+    the RPN model (with its captioning branch unless `roi_only`), seeded
+    from `cfg.seed`, on the card unless `device="cpu"`. Where
+    `cfg.checkpoint_start_from` names a port checkpoint (a training state
+    or `{"model": ...}`), its weights are restored into the model →
+    (model, the checkpoint's state); else (model, None). The trainers do
+    not call it, as the JAX trainers do not."""
+    dev = resolve_device(device)
+    build = build_gt_model if cfg.model_type == "gt" else build_rpn_model
+    model = seeded_init_(build(cfg, vocab_size, seq_length, dev), cfg.seed)
+    state = None
+    if cfg.checkpoint_start_from:
+        state = ckptlib.restore_checkpoint(cfg.checkpoint_start_from,
+                                           map_location=dev)
+        model.load_state_dict(state["model"])
+    return model, state
+
+
 def make_gt_train_step(model: GTDenseCaptioner, optimizer: DenseAdam,
                        use_curriculum: bool, generator: torch.Generator,
                        dp: Optional[meshlib.DataParallel] = None):

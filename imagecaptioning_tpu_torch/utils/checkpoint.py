@@ -132,3 +132,11 @@ class SignalCheckpointer:
         for s, prev in self._prev.items():
             _signal.signal(s, prev)
         return False
+
+    def save_if_requested(self, path: str, state: Dict[str, Any]) -> bool:
+        """Write `state` to `path` if a signal came → whether one came.
+        For one process: the drivers agree on the signal over the ranks
+        first (`Mesh.any`) and then save."""
+        if self.requested:
+            save_checkpoint(path, state)
+        return self.requested

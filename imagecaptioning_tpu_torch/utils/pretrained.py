@@ -179,6 +179,13 @@ def module_state_dict(model: nn.Module, module: str,
     return {k[len(module) + 1:]: v for k, v in sd.items()}
 
 
+def default_module_for(model_type: str) -> str:
+    """The module a bare `encoder_init` path initializes (module
+    docstring)."""
+    return {"vitb": "encoder_vit", "rpn": "conv_trunk"}.get(
+        model_type, "features")
+
+
 def apply_encoder_init(model: nn.Module, spec: str,
                        default_module: str) -> nn.Module:
     """Merge the converted encoder weights `spec` names into `model`, in

@@ -419,7 +419,7 @@ def runs(tmp_path_factory):
         # JAX compiles mostly outside the GIL: the references in threads,
         # beside the dry run's processes
         with ThreadPoolExecutor(4) as pool:
-            dry = pool.submit(dryrun.dryrun_multichip, 2)
+            dry = pool.submit(dryrun.dryrun_multichip, 2, device="cpu")
             refs = {name: pool.submit(
                 _jax_alexcap if case["kind"] == "alexcap" else _jax_dense,
                 case, batches) for name, (case, batches) in cases.items()

@@ -220,7 +220,7 @@ def runs(tmp_path_factory):
     results = {name: {"case": case} for name, (case, _) in cases.items()}
     try:
         with ThreadPoolExecutor(4) as pool:
-            dry = pool.submit(dryrun.dryrun_lines, WORLD)
+            dry = pool.submit(dryrun.dryrun_lines, WORLD, device="cpu")
             refs = {name: pool.submit(_jax_alexcap, case, batches)
                     for name, (case, batches) in cases.items()
                     if name.startswith("jax_")}
