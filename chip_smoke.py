@@ -56,9 +56,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    bf16 map with bf16 CHW gradient (as training calls it), fp32 with fp32
    CHW, fp32 with fp32 NHWC. d_features: fp32 max-abs ≤ 1e-5, bf16
    within one bf16 ulp; d_boxes within 1e-4 relative to the largest
-   component; both bitwise equal on a second launch (kernel B is two
-   launches, partial sums per channel chunk and their fixed-order sum,
-   counted and timed as one call). Timed as in 3 and 5
+   component; both bitwise equal on a second launch (neither uses
+   float atomics; each is one launch). Timed as in 3 and 5
    (events hot and cold, CUPTI, host enqueue), beside the plain version,
    autograd's backward through affine_grid+grid_sample (both gradients)
    and the bound (bytes over 3.35 TB/s against the flops over 67 TFLOP/s);

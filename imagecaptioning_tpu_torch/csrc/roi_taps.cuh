@@ -22,19 +22,32 @@ struct AxisSample {
   bool lo_ok, hi_ok;  // pixels p0 and p0 + 1 lie in [0, in)
 };
 
-__device__ __forceinline__ AxisSample axis_sample(float center, float size,
-                                                  int j, int out, int in,
-                                                  float image) {
-  const float theta_t =
+// A box's theta_t and theta_s along one axis.
+__device__ __forceinline__ void axis_theta(float center, float size,
+                                           float image, float& theta_t,
+                                           float& theta_s) {
+  theta_t =
       __fdiv_rn(__fsub_rn(__fsub_rn(__fmul_rn(2.0f, center), 1.0f), image),
                 __fsub_rn(image, 1.0f));
-  const float theta_s = __fdiv_rn(size, image);
-  AxisSample s;
-  s.g = __fsub_rn(
+  theta_s = __fdiv_rn(size, image);
+}
+
+// The normalized grid coordinate g_j of output index j of `out`.
+__device__ __forceinline__ float axis_grid(int j, int out) {
+  return __fsub_rn(
       __fdiv_rn(__fadd_rn(__fmul_rn(2.0f, static_cast<float>(j)), 1.0f),
                 static_cast<float>(out)),
       1.0f);
-  const float u = __fadd_rn(__fmul_rn(theta_s, s.g), theta_t);
+}
+
+// The sample at grid coordinate g of a box with (theta_t, theta_s), over
+// `in` pixels.
+__device__ __forceinline__ AxisSample axis_sample_at(float theta_t,
+                                                     float theta_s, float g,
+                                                     int in) {
+  AxisSample s;
+  s.g = g;
+  const float u = __fadd_rn(__fmul_rn(theta_s, g), theta_t);
   // halving is exact, so x * 0.5 is the correctly rounded x / 2, and the
   // chain waits on one division less
   const float p = __fmul_rn(
@@ -46,6 +59,14 @@ __device__ __forceinline__ AxisSample axis_sample(float center, float size,
   s.lo_ok = s.p0 >= 0.0f && s.p0 <= last;
   s.hi_ok = s.p0 >= -1.0f && s.p0 <= last - 1.0f;
   return s;
+}
+
+__device__ __forceinline__ AxisSample axis_sample(float center, float size,
+                                                  int j, int out, int in,
+                                                  float image) {
+  float theta_t, theta_s;
+  axis_theta(center, size, image, theta_t, theta_s);
+  return axis_sample_at(theta_t, theta_s, axis_grid(j, out), in);
 }
 
 struct Tap {

@@ -102,9 +102,9 @@ def bind_roi_align_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     shape = [i, i, i, i, i, i, i, f, f]     # n, r, hf, wf, c, oh, ow, ih, iw
     # grad, boxes, d_features, shape, grad_bf16, grad_chw, out_bf16, stream
     lib.roi_align_bwd_features.argtypes = [p, p, p, *shape, i, i, i, p]
-    # features, boxes, grad, d_boxes, scratch, shape, feat_bf16, grad_bf16,
-    # grad_chw, stream
-    lib.roi_align_bwd_boxes.argtypes = [p, p, p, p, p, *shape, i, i, i, p]
+    # features, boxes, grad, d_boxes, shape, feat_bf16, grad_bf16, grad_chw,
+    # stream
+    lib.roi_align_bwd_boxes.argtypes = [p, p, p, p, *shape, i, i, i, p]
     lib.roi_align_bwd_features.restype = ctypes.c_int
     lib.roi_align_bwd_boxes.restype = ctypes.c_int
     return lib

@@ -337,9 +337,6 @@ def roi_align_backward_reference(features: torch.Tensor, boxes: torch.Tensor,
     return d_features, d_boxes
 
 
-_BOX_CHUNK = 64       # kernel B's channels per block
-
-
 def _check_bwd(features: torch.Tensor, boxes: torch.Tensor,
                grad: torch.Tensor, out_hw: Tuple[int, int]) -> None:
     """The backward wrappers' checks, the same on every device."""
@@ -365,14 +362,10 @@ def _launch_bwd(entry: str, features: torch.Tensor, boxes: torch.Tensor,
                 grad.data_ptr(), boxes.data_ptr(), out.data_ptr(), *shape,
                 grad_bf16, grad_chw, feat_bf16, stream)
         else:
-            # the first pass's partial sums per (box, channel chunk)
-            chunks = -(-c // _BOX_CHUNK)
-            scratch = torch.empty(n * r * chunks * (oh + ow),
-                                  dtype=torch.float32, device=features.device)
             err = lib.roi_align_bwd_boxes(
                 features.data_ptr(), boxes.data_ptr(), grad.data_ptr(),
-                out.data_ptr(), scratch.data_ptr(), *shape, feat_bf16,
-                grad_bf16, grad_chw, stream)
+                out.data_ptr(), *shape, feat_bf16, grad_bf16, grad_chw,
+                stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     return out
@@ -386,8 +379,9 @@ def roi_align_bwd_features(features: torch.Tensor, boxes: torch.Tensor,
     (N, R, oh, ow, C) or CHW (N, R, C·oh·ow), fp32 or bf16, for any
     `out_hw` the forward takes. On a CUDA tensor one launch of kernel A
     (`csrc/roi_align_bwd.cu`: its staged kernel up to 32 a side and 256
-    cells, its general kernel beyond, chosen there by shape); on a CPU
-    tensor the plain backward."""
+    cells, over regions of the map chosen there by shape, its general
+    kernel beyond, chosen there by shape); on a CPU tensor the plain
+    backward."""
     _check_bwd(features, boxes, grad, out_hw)
     if features.device.type == "cpu":
         return roi_align_backward_reference(features, boxes, grad, image_hw,
@@ -405,12 +399,11 @@ def roi_align_bwd_boxes(features: torch.Tensor, boxes: torch.Tensor,
                         grad: torch.Tensor, image_hw: Tuple[float, float],
                         out_hw: Tuple[int, int] = (7, 7)) -> torch.Tensor:
     """d_boxes (N, R, 4) fp32 from the pooling's upstream gradient, as
-    `roi_align_bwd_features` takes it. On a CUDA tensor kernel B
-    (`csrc/roi_align_bwd.cu`, staged or general by shape as kernel A),
-    counted as one launch: its C entry runs it as two, partial sums per
-    (box, 64-channel chunk) into a scratch buffer allocated here, then
-    their sum in chunk order, so the bits repeat without atomics. On a CPU
-    tensor the plain backward."""
+    `roi_align_bwd_features` takes it. On a CUDA tensor one launch of
+    kernel B (`csrc/roi_align_bwd.cu`, staged or general by shape as
+    kernel A): a box's sums are taken in one block in a fixed order, so the
+    bits repeat without atomics or scratch. On a CPU tensor the plain
+    backward."""
     _check_bwd(features, boxes, grad, out_hw)
     if features.device.type == "cpu":
         return roi_align_backward_reference(features, boxes, grad, image_hw,

@@ -20,8 +20,9 @@ bf16 ulp for a bf16 map (both round an fp32 sum once, in another order);
 d_boxes within 1e-4 relative to the largest component; each kernel
 bitwise the same on a second launch (neither uses float atomics), also
 on the RPN's sampled boxes (repeated negatives, boxes far larger than
-the map and partly outside it). One fp32 RPN train step on the card
-against the CPU, from the same weights and sampler keys: each loss
+the map and partly outside it), at the RPN training shape itself, and
+where kernel A's regions are reached by no box. One fp32 RPN train step
+on the card against the CPU, from the same weights and sampler keys: each loss
 within 1e-4 relative, each weight within 2·lr. The AlexCap LSTM captioner
 (a cut ResNet): fp32 logits within 1e-4 of the CPU's with greedy and
 beam-3 tokens identical; one fp64 finetune step within 1e-10 in the loss
@@ -232,6 +233,16 @@ BWD_SHAPES = [
     (2, 9, 10, 11, 70, 96.0, 128.0, (33, 2)),
     (2, 9, 10, 11, 24, 96.0, 128.0, (17, 16)),
     (1, 12, 20, 30, 16, 320.0, 480.0, (9, 40)),
+    # kernel A's regions of several column warps (`features_tile`): 48
+    # boxes reaching most regions, more than a ring's slots; C = 48: one
+    # partial 64-channel chunk
+    (2, 48, 45, 45, 48, 720.0, 720.0, (7, 7)),
+    # one image of 96 boxes over a 45×45 map of 32 channels: one chunk, so
+    # the map is cut into many small regions; NHWC through cp.async
+    (1, 96, 45, 45, 32, 720.0, 720.0, (7, 7)),
+    # 16×16 cells of 512 channels over 23×23 regions: in fp32 two slots do
+    # not fit beside the region's sums, so kernel A stages nothing
+    (4, 8, 45, 45, 512, 720.0, 720.0, (16, 16)),
 ]
 
 
@@ -272,6 +283,24 @@ def test_backward_kernels_match_plain(card, n, r, hf, wf, c, ih, iw, out_hw,
         port_roi.roi_align_bwd_features(feats, boxes, grad, hw, out_hw), d_f)
     assert torch.equal(
         port_roi.roi_align_bwd_boxes(feats, boxes, grad, hw, out_hw), d_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_without_boxes(card, dtype):
+    """No boxes: kernel A writes a zero d_F, kernel B an empty d_boxes,
+    from either layout of the (empty) gradient."""
+    feats = torch.randn(2, 9, 9, 64, device=card).to(dtype)
+    boxes = torch.zeros(2, 0, 4, device=card)
+    for grad in (torch.zeros(2, 0, 64 * 49, device=card, dtype=dtype),
+                 torch.zeros(2, 0, 7, 7, 64, device=card)):
+        d_f = port_roi.roi_align_bwd_features(feats, boxes, grad,
+                                              (144.0, 144.0))
+        d_b = port_roi.roi_align_bwd_boxes(feats, boxes, grad, (144.0, 144.0))
+        torch.cuda.synchronize()
+        assert d_f.shape == feats.shape and d_f.dtype == dtype
+        assert not bool(d_f.any())
+        assert d_b.shape == (2, 0, 4)
 
 
 @pytest.mark.cuda
@@ -416,6 +445,69 @@ def test_roi_kernels_on_rpn_sampled_boxes(card, dtype):
                                atol=1e-4 * float(want_b.abs().max()))
     assert torch.equal(port_roi.roi_align_bwd_boxes(feats, boxes, grad, hw),
                        d_b)
+
+
+def _check_backward(card, feats, boxes, grad, hw):
+    """Kernels A and B against the plain backward, each bitwise the same
+    on a second launch."""
+    d_f = port_roi.roi_align_bwd_features(feats, boxes, grad, hw)
+    d_b = port_roi.roi_align_bwd_boxes(feats, boxes, grad, hw)
+    want_f, want_b = port_roi.roi_align_backward_reference(feats, boxes,
+                                                           grad, hw)
+    if feats.dtype == torch.float32:
+        torch.testing.assert_close(d_f, want_f, rtol=0, atol=1e-5)
+    else:
+        assert bool(_within_one_bf16_ulp(d_f, want_f).all())
+    torch.testing.assert_close(d_b, want_b, rtol=1e-4,
+                               atol=1e-4 * float(want_b.abs().max()))
+    assert torch.equal(port_roi.roi_align_bwd_features(feats, boxes, grad,
+                                                       hw), d_f)
+    assert torch.equal(port_roi.roi_align_bwd_boxes(feats, boxes, grad, hw),
+                       d_b)
+    return d_f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_at_the_rpn_training_shape(card, dtype):
+    """Kernels A and B at the RPN training shape (4 images × 256 boxes of
+    a 45×45×512 map at 720², CHW gradient in the map's dtype), the boxes
+    placed as the RPN samples them: the reference's anchors, some partly
+    outside the image, the negatives repeated."""
+    from imagecaptioning_tpu_torch.models.densecap import REFERENCE_ANCHORS
+
+    rng = np.random.RandomState(11)
+    n, r, hf, c, s = 4, 256, 45, 512, 720.0
+    wh = np.asarray(REFERENCE_ANCHORS, np.float32)[rng.randint(0, 12, (n, r))]
+    xy = rng.uniform(-40, s + 40, (n, r, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, wh], -1)
+    boxes[:, r // 2:] = boxes[:, r // 2:r // 2 + 16].repeat(8, axis=1)
+    boxes = torch.from_numpy(boxes).to(card)
+    feats = torch.from_numpy(rng.randn(n, hf, hf, c).astype(np.float32))
+    feats = feats.to(card, dtype)
+    grad = torch.from_numpy(rng.randn(n, r, c * 49).astype(np.float32))
+    _check_backward(card, feats, boxes, grad.to(card, dtype), (s, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_where_no_box_reaches(card, dtype):
+    """Small boxes in the top-left quarter of the image only: kernel A's
+    regions (row groups, column passes) further right and down are reached
+    by no box, and their d_F is zero."""
+    rng = np.random.RandomState(12)
+    n, r, hf, c, s = 2, 40, 45, 64, 720.0
+    boxes = np.stack([rng.uniform(1, s / 4, (n, r)),
+                      rng.uniform(1, s / 4, (n, r)),
+                      rng.uniform(16, s / 8, (n, r)),
+                      rng.uniform(16, s / 8, (n, r))], -1).astype(np.float32)
+    boxes = torch.from_numpy(boxes).to(card)
+    feats = torch.from_numpy(rng.randn(n, hf, hf, c).astype(np.float32))
+    feats = feats.to(card, dtype)
+    grad = torch.from_numpy(rng.randn(n, r, c * 49).astype(np.float32))
+    d_f = _check_backward(card, feats, boxes, grad.to(card, dtype), (s, s))
+    assert not bool(d_f[:, hf // 2:, :].any())
+    assert not bool(d_f[:, :, hf // 2:].any())
 
 
 @pytest.mark.cuda
