@@ -257,7 +257,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    dry run: no kernel A); (f) the dry run's default route at n = 2
    (`dryrun.route`: gloo with both ranks on the one card here, NCCL with
    a card a rank where there are 2), printed and asserted, no process
-   started (`dp_training`).
+   started; (g) in the world of (b), the AlexCap LSTM of (c) at
+   grad_accum_steps 2 (fp64, batch 12 a micro-step): each micro-step's
+   gradient norm within 1e-5 relative of the one-process run's and the
+   update by phase 14's gate; a checkpoint rank 0 writes after the first
+   micro-step, resumed on both ranks into a model and optimizer built
+   anew, the window finished bitwise as without it; its line gives the
+   data axis's collectives per applied update (`Axis.calls`), 2 of them
+   gradient all-reduces (`dp_training`).
 Every line of phases 4–27 carries the card's name and power limit. The
 kernels line counts each kernel's launches over every path that runs it
 (`launches`, split in `launches_by_path`): the fused forward in both GT
@@ -3367,12 +3374,14 @@ def dp_rpn_step(dev, roi, dp, state=None) -> dict:
                                                 losses.items()}, launches)
 
 
-def dp_alexcap_step(dev, roi, dp, state=None) -> dict:
-    """One AlexCap LSTM step after the finetune boundary at full width
+def dp_alexcap_trainer(dev, dp, state=None, accum: int = 1):
+    """The AlexCap LSTM after the finetune boundary at full width
     (ResNet-101, BatchNorm on the global batch's statistics) in fp64, as
-    phase 18 holds the ResNet families, dropout on, on `dp`'s rows of
-    DP_ALEX_BATCH uint8 CelebA-size images, from seed 0's weights or
-    `state`."""
+    phase 18 holds the ResNet families, dropout on, at grad_accum_steps
+    `accum`, on `dp`'s rows of DP_ALEX_BATCH images a step → (config,
+    model from seed 0's weights or `state`, those weights on the host,
+    optimizer, the trainer's generator, the gradients each update took
+    (filled by a hook), the train step)."""
     from imagecaptioning_tpu_torch.data.transforms import resnet_v2_preprocess
     from imagecaptioning_tpu_torch.models.captioners import build_model
     from imagecaptioning_tpu_torch.train import optim
@@ -3381,13 +3390,7 @@ def dp_alexcap_step(dev, roi, dp, state=None) -> dict:
 
     dtype = torch.float64
     cfg = alexcap_cfg("lstm", compute_dtype="float32", use_dropout=True,
-                      batch_size=DP_ALEX_BATCH)
-    rng = np.random.RandomState(SEED + 28)
-    images = torch.from_numpy(rng.randint(0, 256, (DP_ALEX_BATCH, *ALEX_HW,
-                                                   3), dtype=np.uint8))
-    labels = torch.from_numpy(rng.randint(1, ALEX_VOCAB + 1,
-                                          (DP_ALEX_BATCH, ALEX_SEQ)))
-    labels[1::3, 9:] = 0
+                      batch_size=DP_ALEX_BATCH, grad_accum_steps=accum)
     model, state = dp_initial(
         build_model(cfg, ALEX_VOCAB, ALEX_SEQ, device=dev), state,
         lambda m: seeded_init_(m, SEED))
@@ -3398,16 +3401,138 @@ def dp_alexcap_step(dev, roi, dp, state=None) -> dict:
     opt.register_step_pre_hook(lambda *_: grads.update(
         {n: p.grad.detach().cpu().clone()
          for n, p in model.named_parameters() if p.grad is not None}))
+    gen = torch.Generator(dev).manual_seed(SEED)
     step = make_train_step(
-        model, opt, torch.Generator(dev).manual_seed(SEED),
-        lambda u8: resnet_v2_preprocess(u8, dtype=dtype),
+        model, opt, gen, lambda u8: resnet_v2_preprocess(u8, dtype=dtype),
         clip_norm=cfg.grad_clip_norm, dp=dp)
+    return cfg, model, state, opt, gen, grads, step
+
+
+def dp_alexcap_batch(seed: int):
+    """DP_ALEX_BATCH uint8 CelebA-size images and their captions, from
+    `seed`."""
+    rng = np.random.RandomState(seed)
+    images = torch.from_numpy(rng.randint(0, 256, (DP_ALEX_BATCH, *ALEX_HW,
+                                                   3), dtype=np.uint8))
+    labels = torch.from_numpy(rng.randint(1, ALEX_VOCAB + 1,
+                                          (DP_ALEX_BATCH, ALEX_SEQ)))
+    labels[1::3, 9:] = 0
+    return images, labels
+
+
+def dp_alexcap_step(dev, roi, dp, state=None) -> dict:
+    """One AlexCap LSTM step of `dp_alexcap_trainer` on `dp`'s rows of a
+    batch from seed SEED + 28."""
+    images, labels = dp_alexcap_batch(SEED + 28)
+    _, model, state, _, _, grads, step = dp_alexcap_trainer(dev, dp, state)
     rows = dp.rows(DP_ALEX_BATCH)
     zero_roi_counts(roi)
     out = step(images[rows].to(dev), labels[rows].to(dev))
     torch.cuda.synchronize()
     return dp_step_result(model, state, grads,
                           {"total": float(out["loss"])}, roi_counts(roi))
+
+
+# phase 27 (g): the AlexCap LSTM at grad_accum_steps DP_ACCUM in the gloo
+# world; each micro-step's gradient norm within DP_NORM_REL of the one
+# process's (the world-size gate of tests/test_torch_parallel.py)
+DP_ACCUM = 2
+DP_NORM_REL = 1e-5
+
+
+def dp_alexcap_micro(step, dp, batch, dev) -> dict:
+    """One micro-step of `dp_alexcap_trainer`'s step on `dp`'s rows of
+    `batch` → its loss and gradient norm (the global batch's)."""
+    images, labels = batch
+    rows = dp.rows(DP_ALEX_BATCH)
+    out = step(images[rows].to(dev), labels[rows].to(dev))
+    return {"loss": float(out["loss"]), "grad_norm": float(out["grad_norm"])}
+
+
+def dp_alexcap_accum(dev, roi, mesh, out_dir: Path) -> dict:
+    """Phase 27 (g), on every rank of the world: one window of DP_ACCUM
+    micro-steps of `dp_alexcap_trainer` (batches from seeds SEED + 30 on),
+    each micro-step's loss and gradient norm; after the first, rank 0
+    writes the drivers' `train_state` with `save_checkpoint`, and the
+    window goes on. Then every rank builds its model, optimizer and
+    generator anew, loads that file and finishes the window: whether the
+    losses, norms, weights, BatchNorm statistics, Adam's moments and the
+    generator are bitwise the unbroken window's. The data axis's
+    collectives in the window (`Axis.calls`), and those of the steps'
+    gradient reductions; the ROI launches (none: no ROI kernel runs).
+    Rank 0 then runs the window as one process from the same weights:
+    each micro-step's norm against the world's, and the update by phase
+    14's gate (`dp_agreement`). The caller sets cuDNN's deterministic
+    algorithms: its default fp64 convolution backward is not bitwise
+    repeatable."""
+    import collections
+
+    from imagecaptioning_tpu_torch.parallel import mesh as meshlib
+    from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
+
+    batches = [dp_alexcap_batch(SEED + 30 + i) for i in range(DP_ACCUM)]
+    # a reducer of its own, whose gradient reductions are counted
+    dp = meshlib.DataParallel(mesh.data.index, mesh.data.size,
+                              mesh.data.group, mesh.data.stage_on_host)
+    grad_calls = collections.Counter()
+    reduce_grads = dp.reduce_grads
+
+    def counted(grads):
+        before = collections.Counter(dp.calls)
+        reduce_grads(grads)
+        grad_calls.update(collections.Counter(dp.calls) - before)
+    dp.reduce_grads = counted
+    path = out_dir / "dp_accum.ckpt"
+    zero_roi_counts(roi)
+    cfg, model, state, opt, gen, grads, step = dp_alexcap_trainer(
+        dev, dp, None, DP_ACCUM)
+    micro = []
+    for i, batch in enumerate(batches):
+        if i == 1:                  # mid-window, as a driver's writes come
+            ckptlib.save_checkpoint(str(path), ckptlib.train_state(
+                model, opt, i, gen, 0))
+            mesh.barrier()
+        micro.append(dp_alexcap_micro(step, dp, batch, dev))
+    torch.cuda.synchronize()
+    res = {"micro_steps": micro, "calls_per_update": dict(dp.calls),
+           "grad_calls_per_update": dict(grad_calls),
+           "checkpoint_gb": path.stat().st_size / 1e9,
+           "launches": roi_counts(roi)}
+    world = dp_step_result(model, state, grads, {"total": micro[-1]["loss"]},
+                           res["launches"])
+    _, model2, _, opt2, gen2, _, step2 = dp_alexcap_trainer(
+        dev, dp, state, DP_ACCUM)
+    ckptlib.load_train_state(ckptlib.restore_checkpoint(
+        str(path), torch.device("cpu")), model2, opt2, gen2)
+    res["resumed"] = [dp_alexcap_micro(step2, dp, b, dev)
+                      for b in batches[1:]]
+    torch.cuda.synchronize()
+    res["resumed_equal"] = {
+        "micro_steps": res["resumed"] == micro[1:],
+        "model": same_state(model.state_dict(), model2.state_dict()),
+        "optimizer": same_state(opt.state_dict(), opt2.state_dict()),
+        "generator": bool(torch.equal(gen.get_state(), gen2.get_state()))}
+    res["resumed_bitwise"] = all(res["resumed_equal"].values())
+    del model, opt, step, model2, opt2, step2
+    mesh.barrier()
+    if meshlib.is_writer():
+        path.unlink()
+    torch.cuda.empty_cache()
+    if mesh.data.index == 0:
+        _, model, _, _, _, grads, step = dp_alexcap_trainer(
+            dev, meshlib.IDENTITY, state, DP_ACCUM)
+        one_micro = [dp_alexcap_micro(step, meshlib.IDENTITY, b, dev)
+                     for b in batches]
+        torch.cuda.synchronize()
+        one = dp_step_result(model, state, grads,
+                             {"total": one_micro[-1]["loss"]}, {})
+        res["one_process"] = one_micro
+        res["grad_norm_rel_err"] = [
+            abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+            for a, b in zip(micro, one_micro)]
+        res["agreement"] = dp_agreement(world, one, cfg.learning_rate, True)
+        del model, step
+    return res
 
 
 # the split steps (phase 27 (d)): the families `shard_params` splits, at
@@ -3542,6 +3667,18 @@ def dp_child(mode: str, argv) -> int:
                 del one
             del world
             torch.cuda.empty_cache()
+        # (g) the AlexCap LSTM at grad_accum_steps DP_ACCUM; cuDNN's default
+        # fp64 convolution backward does not repeat its last bits from one
+        # run to the next, so the bitwise resume takes its deterministic
+        # algorithms
+        t0 = time.perf_counter()
+        torch.backends.cudnn.deterministic = True
+        try:
+            out["alexcap_k2"] = dp_alexcap_accum(dev, roi, mesh, out_dir)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        out["seconds"]["alexcap_k2"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
         # (d) the split: the same world as ('data', 'model') = (1, 2)
         split_mesh = meshlib.create_mesh((1, DP_WORLD), ("data", "model"),
                                          dev)
@@ -3644,7 +3781,16 @@ def dp_training(dev, roi, out_dir: Path, card="") -> dict:
     (f) the dry run's default route at n = DP_WORLD (`dryrun.route`):
         gloo with the ranks sharing this machine's cards where there are
         fewer than DP_WORLD, NCCL with a card a rank otherwise; printed
-        and asserted, nothing started.
+        and asserted, nothing started;
+    (g) in the world of (b), after (c), the AlexCap LSTM of (c) at
+        grad_accum_steps DP_ACCUM, one window (`dp_alexcap_accum`): each
+        micro-step's gradient norm within DP_NORM_REL of the one
+        process's and the update by phase 14's gate; a checkpoint that
+        rank 0 writes after the first micro-step, resumed by every rank
+        into a model and optimizer built anew, finishing the window
+        bitwise as the unbroken world did; DP_ACCUM gradient all-reduces
+        (`Axis.calls` of the steps' `reduce_grads`) an applied update,
+        printed on a line of their own; no ROI launch.
     Rank 0 runs each one-process step after the world's, from the same
     weights; it draws the same dropout masks and sampler keys (the ranks
     draw the global batch's and keep their rows)."""
@@ -3731,6 +3877,29 @@ def dp_training(dev, roi, out_dir: Path, card="") -> dict:
     for name in ("rpn", "alexcap"):
         res[name] = ranks[0][name]
         res[name]["rank_losses"] = [r["losses"][name] for r in ranks]
+    accum = [r["alexcap_k2"] for r in ranks]
+    res["alexcap_k2"] = {
+        **accum[0], "rank_resumed_bitwise": [a["resumed_bitwise"]
+                                             for a in accum],
+        "rank_grad_calls_per_update": [a["grad_calls_per_update"]
+                                       for a in accum]}
+    print(f"data-parallel accumulation (world {DP_WORLD}, gloo on one card; "
+          f"AlexCap LSTM, fp64, grad_accum_steps {DP_ACCUM}): Axis.calls "
+          f"per applied update {json.dumps(accum[0]['calls_per_update'])}, "
+          f"of them in the gradient reductions "
+          f"{json.dumps(accum[0]['grad_calls_per_update'])}; each "
+          f"micro-step's grad_norm relative to one process "
+          f"{res['alexcap_k2']['grad_norm_rel_err']}; mid-window resume "
+          f"bitwise on every rank {res['alexcap_k2']['rank_resumed_bitwise']}"
+          f" [{card}]", flush=True)
+    accum_ok = (
+        all(a["resumed_bitwise"] for a in accum)
+        and all(sum(a["grad_calls_per_update"].values()) == DP_ACCUM
+                for a in accum)
+        and res["alexcap_k2"]["agreement"]["ok"]
+        and all(np.isfinite(m["grad_norm"]) and m["grad_norm"] > 0
+                for m in accum[0]["micro_steps"])
+        and max(res["alexcap_k2"]["grad_norm_rel_err"]) <= DP_NORM_REL)
     res["split_mesh"] = ranks[0]["split_mesh"]
     for model_type in DP_SPLIT_FAMILIES:
         key = f"split_{model_type}"
@@ -3753,7 +3922,8 @@ def dp_training(dev, roi, out_dir: Path, card="") -> dict:
         {k: r["launches"]["rpn"][k] for k in DP_KERNELS} == once
         for r in ranks)
     res["launches"] = {k: sum(r["launches"]["rpn"][k]
-                              + r["launches"]["alexcap"][k] for r in ranks)
+                              + r["launches"]["alexcap"][k]
+                              + r["alexcap_k2"]["launches"][k] for r in ranks)
                        for k in ROI_WRAPPERS}
     res["tolerance"] = (f"phase 14's: each loss {LOSS_REL_TOL} relative; "
                         f"each gradient {GRAD_REL_TOL} relative in all but "
@@ -3777,7 +3947,7 @@ def dp_training(dev, roi, out_dir: Path, card="") -> dict:
         and all(int(w.split("=")[1].split("/")[0]) > 0
                 for w in dry[0].split()[-3:])
         and all(res["dryrun_launches"][k] > 0 for k in DRYRUN_KERNELS))
-    if not (res["rpn"]["ok"] and res["alexcap"]["ok"]
+    if not (res["rpn"]["ok"] and res["alexcap"]["ok"] and accum_ok
             and res["roi_once_a_rank"] and res["mesh"] == {"data": DP_WORLD}
             and all(a[k] > 0 for k in DP_KERNELS) and split_ok and dry_ok
             and route_ok

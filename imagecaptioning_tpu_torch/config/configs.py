@@ -86,15 +86,15 @@ class CaptionConfig:
                                   # save_checkpoint_every // bs**2
     debug_nans: bool = False
     tensorboard_dir: str = ""     # '' = off
-    # k micro-batches averaged into one optimizer update (not ported: > 1
-    # raises)
+    # k micro-batches averaged into one optimizer update (optax's
+    # MultiSteps: `train/optim.py` `Accumulating`)
     grad_accum_steps: int = 1
     # CNN trunk depth override: () = the family default (ResNet-101's
     # (3, 4, 23, 3)); smaller tuples shrink the trunk for CPU runs and tests
     backbone_stages: tuple = ()
-    # ViT encoder dims override for the vitb family (Slice E)
+    # ViT encoder dims override for the vitb family
     vit_dims: tuple = ()
-    # pretrained encoder weights merged into the init (not ported: raises)
+    # pretrained encoder weights merged into the init (`utils/pretrained.py`)
     encoder_init: str = ""
     # Device-resident dataset (data/device_store.py): stage the uint8 train
     # split on the card once and feed the step index batches. 'auto' = on

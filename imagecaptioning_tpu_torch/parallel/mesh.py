@@ -18,8 +18,9 @@ out, all of them in this module:
   batch, as JAX caps its devices, and ranks beyond it join no step.
 - `DataParallel` is the step's view of the data axis: the rows of the
   global batch this rank owns (`P("data")` on the leading axis), the
-  loss denominators summed over the data ranks, the gradients summed
-  once an applied update, BatchNorm's statistics over the global batch,
+  loss denominators summed over the data ranks, each micro-step's
+  gradients summed (`reduce_grads`, called by the train steps after the
+  backward), BatchNorm's statistics over the global batch,
   and random draws made in the global batch's shape and sliced, so that
   a step on n ranks computes what the step on one process computes on
   the whole batch, up to reduction order. The model and the losses reach

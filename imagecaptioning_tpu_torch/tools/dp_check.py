@@ -19,7 +19,10 @@ rows. It runs on the CPU (gloo) and imports nothing but the port.
 
 from __future__ import annotations
 
+import hashlib
+import os
 import sys
+import time
 from pathlib import Path
 from typing import Dict, List
 
@@ -32,20 +35,25 @@ from imagecaptioning_tpu_torch.parallel import mesh as meshlib
 from imagecaptioning_tpu_torch.train import dense_driver as dd
 from imagecaptioning_tpu_torch.train import optim
 from imagecaptioning_tpu_torch.train.step import make_train_step
+from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
 from imagecaptioning_tpu_torch.utils.weights import seeded_init_
 
 
 class _Recorder:
-    """Wraps a `DataParallel`'s draws and an optimizer's `accumulate` to
-    keep each draw (this rank's rows, with its batch axis) and each
-    applied update's gradients (summed over the ranks, before the clip,
-    whole: `full` joins a split one's shards)."""
+    """Wraps a `DataParallel`'s draws and `reduce_grads` and an
+    optimizer's `accumulate` to keep each draw (this rank's rows, with
+    its batch axis), each applied update's gradients (summed over the
+    ranks, before the clip, whole: `full` joins a split one's shards) and
+    the data axis's collectives in its gradient reductions (from
+    `Axis.calls`)."""
 
     def __init__(self, dp: meshlib.DataParallel, model, optimizer, full):
         self.draws: List[tuple] = []
         self.grads: List[Dict[str, np.ndarray]] = []
-        rand, bernoulli, accumulate = (dp.rand, dp.bernoulli,
-                                       optimizer.accumulate)
+        self.reduces: List[int] = []
+        window = [0]
+        rand, bernoulli, reduce_grads, accumulate = (
+            dp.rand, dp.bernoulli, dp.reduce_grads, optimizer.accumulate)
 
         def rec_rand(shape, generator=None, device=None, batch_axis=0):
             out = rand(shape, generator, device, batch_axis)
@@ -57,14 +65,22 @@ class _Recorder:
             self.draws.append((out.clone(), batch_axis))
             return out
 
+        def rec_reduce_grads(grads):
+            before = sum(dp.calls.values())
+            reduce_grads(grads)
+            window[0] += sum(dp.calls.values()) - before
+
         def rec_accumulate():
             done = accumulate()
             if done:
                 self.grads.append({n: full(p.grad).detach().clone().numpy()
                                    for n, p in model.named_parameters()
                                    if p.grad is not None})
+                self.reduces.append(window[0])
+                window[0] = 0
             return done
-        dp.rand, dp.bernoulli = rec_rand, rec_bernoulli
+        dp.rand, dp.bernoulli, dp.reduce_grads = (rec_rand, rec_bernoulli,
+                                                  rec_reduce_grads)
         optimizer.accumulate = rec_accumulate
 
 
@@ -116,6 +132,16 @@ def initial_model(case: Dict) -> torch.nn.Module:
     return model
 
 
+# seconds a resumed case waits for its checkpoint
+RESUME_WAIT = 600
+
+
+def _bits(t: np.ndarray) -> np.ndarray:
+    """SHA-256 of an array's bytes: equal digests are equal bits."""
+    return np.frombuffer(hashlib.sha256(
+        np.ascontiguousarray(t).view(np.uint8)).digest(), np.uint8)
+
+
 def run_case(case: Dict, mesh: meshlib.Mesh) -> Dict[str, np.ndarray]:
     """The case's steps on the rows of the mesh's data axis → {name:
     array}. A case holds:
@@ -129,10 +155,20 @@ def run_case(case: Dict, mesh: meshlib.Mesh) -> Dict[str, np.ndarray]:
     `no_dropout` (the VGG classifier's dropout off, as in eval mode),
     `f64` (the model and the images in fp64), `split` (AlexCap: the
     parameters split over the mesh's `'model'` axis by `shard_params`;
-    `split_params` lists those that split) and, read by `main`, `mesh`
-    (the mesh's shape and axis names, default all ranks on 'data')."""
+    `split_params` lists those that split), `exact` (a SHA-256 of each
+    weight and statistic after the steps as `bits/state/<name>`, and of
+    each tensor of the optimizer's state as
+    `bits/moment/<parameter>/<key>`), `checkpoint` (a path) with
+    `save_after` m (after m steps rank 0 writes the drivers'
+    `train_state` there with `save_checkpoint`, and the run goes on) or
+    with `resume_after` m (no steps of its own before m: it waits for the
+    file, which another case or world writes, loads it into the model,
+    optimizer and generator it built and takes the steps from m on) and,
+    read by `main`, `mesh` (the mesh's shape and axis names, default all
+    ranks on 'data'). `reduces/<u>` counts the data axis's collectives in
+    the gradient reductions of applied update u."""
     cfg = _config(case)
-    # a reducer of its own: the recorder wraps its draws
+    # a reducer of its own: the recorder wraps its draws and reductions
     dp = meshlib.DataParallel(mesh.data.index, mesh.data.size,
                               mesh.data.group, mesh.data.stage_on_host)
     model = initial_model(case)
@@ -176,7 +212,21 @@ def run_case(case: Dict, mesh: meshlib.Mesh) -> Dict[str, np.ndarray]:
             samples.append((s.pos_idx.clone(), s.neg_idx.clone()))
             return s
         model.sample_regions = rec_sample
-    for i, batch in enumerate(case["batches"]):
+    first = case.get("resume_after", 0)
+    if first:
+        # `save_checkpoint` renames the file into place whole
+        deadline = time.monotonic() + RESUME_WAIT
+        while not os.path.exists(case["checkpoint"]):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no checkpoint {case['checkpoint']}")
+            time.sleep(0.1)
+        ckptlib.load_train_state(ckptlib.restore_checkpoint(
+            case["checkpoint"], torch.device("cpu")), model, opt, gen)
+    for i, batch in enumerate(case["batches"][first:], first):
+        if i == case.get("save_after"):
+            ckptlib.save_checkpoint(case["checkpoint"], ckptlib.train_state(
+                model, opt, i, gen, 0))
+            mesh.barrier()
         n = batch["images"].shape[0]
         rows = dp.rows(n)
         local = {k: (v[rows].double() if case.get("f64")
@@ -202,9 +252,21 @@ def run_case(case: Dict, mesh: meshlib.Mesh) -> Dict[str, np.ndarray]:
                 out[f"loss/{i}/{k}"] = v.numpy()
     for name, t in model.state_dict().items():
         out[f"state/{name}"] = full(t).detach().numpy()
-    for u, grads in enumerate(rec.grads):
+    if case.get("exact"):
+        for key in [k for k in out if k.startswith("state/")]:
+            out[f"bits/{key}"] = _bits(out[key])
+        names = {p: n for n, p in model.named_parameters()}
+        for p, st in opt.state.items():
+            for key, v in st.items():
+                if torch.is_tensor(v):
+                    out[f"bits/moment/{names[p]}/{key}"] = _bits(
+                        full(v).detach().numpy())
+    # a resumed run counts the updates before it too
+    done = first // max(cfg.grad_accum_steps, 1)
+    for u, grads in enumerate(rec.grads, done):
         for name, g in grads.items():
             out[f"grad/{u}/{name}"] = g
+        out[f"reduces/{u}"] = np.asarray(rec.reduces[u - done])
     for j, (d, axis) in enumerate(rec.draws):
         out[f"draw/{j}"] = d.numpy()
         out[f"draw_axis/{j}"] = np.asarray(axis)

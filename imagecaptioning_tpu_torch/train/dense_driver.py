@@ -31,11 +31,14 @@ Data-parallel, as the JAX drivers shard their steps over
 each data rank takes its rows of every batch (the same batch order on
 every rank) and runs the step under `parallel.mesh.active`, so the ROI
 kernels run on its own images, the losses are its parts of the global
-means, the draws are its rows of the global batch's, and the optimizer
-sums the gradients over the ranks once an applied update; the step
-returns the global losses. Rank 0 alone evaluates (over the whole
-split) and writes the histories, TensorBoard and checkpoints while the
-others wait at a barrier; every rank resumes from the same checkpoint.
+means, the draws are its rows of the global batch's, and each step sums
+its gradients over the ranks after the backward, before the optimizer
+folds them into its window (JAX's order: `MultiSteps` sees the global
+batch's gradient); the step returns the global losses. Rank 0 alone
+evaluates (over the whole split) and writes the histories, TensorBoard
+and checkpoints while the others wait at a barrier; every rank resumes
+from the same checkpoint, mid-window too, since every rank holds the
+same window.
 
 The knobs, as in the JAX drivers: `grad_accum_steps` = k makes each step
 a micro-step and updates once per k (optax's `MultiSteps`: the mean of
@@ -273,6 +276,8 @@ def make_gt_train_step(model: GTDenseCaptioner, optimizer: DenseAdam,
             loss = model.loss(out, labels, mask)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            # the global batch's gradient, before the window's mean
+            dp.reduce_grads(p.grad for p in optimizer.accumulated.values())
             if optimizer.accumulate():
                 optimizer.step()
         return dp.all_sum(loss.detach())
@@ -300,6 +305,8 @@ def make_rpn_train_step(model: DenseCapRPN, optimizer: DenseAdam,
                            generator=generator)
             optimizer.zero_grad(set_to_none=True)
             losses["total"].backward()
+            # the global batch's gradient, before the window's mean
+            dp.reduce_grads(p.grad for p in optimizer.accumulated.values())
             if optimizer.accumulate():
                 optimizer.step()
         if dp.size == 1:

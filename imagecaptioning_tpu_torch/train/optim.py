@@ -98,11 +98,11 @@ class Accumulating:
     micro-step count and the means are in `state_dict()`, so a run saved
     mid-window resumes bitwise.
 
-    In a data-parallel step (`parallel.mesh.active`) the gradients are
-    summed over the data ranks here, once an applied update: the
-    gradients themselves when k = 1, the window's means at its k-th
-    micro-step (the mean is linear, so the sum of the ranks' means is the
-    mean of the summed micro-gradients)."""
+    It sums nothing over ranks. In a data-parallel step the step sums each
+    micro-step's gradients over the data ranks before `accumulate()`, as
+    JAX's sharded step hands `MultiSteps` the global batch's gradient:
+    the means are then the same on every rank, and a checkpoint that rank
+    0 writes mid-window resumes on any world size."""
 
     def __init__(self, *args, every: int = 1, accumulated=(), **kw):
         super().__init__(*args, **kw)
@@ -114,8 +114,6 @@ class Accumulating:
     @torch.no_grad()
     def accumulate(self) -> bool:
         if self.every == 1:
-            mesh.current().reduce_grads(
-                p.grad for p in self.accumulated.values())
             return True
         n = self.mini_step
         # CUDA divides by a Python scalar as a multiply by its reciprocal,
@@ -141,7 +139,6 @@ class Accumulating:
         self.mini_step = n + 1
         if self.mini_step < self.every:
             return False
-        mesh.current().reduce_grads(self.means.values())
         for name, acc in self.means.items():
             self.accumulated[name].grad = acc
         self.mini_step, self.means = 0, {}

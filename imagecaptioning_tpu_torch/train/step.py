@@ -17,13 +17,17 @@ call returns its own loss and gradient norm, as JAX's step does.
 Data-parallel (`dp`, a `parallel.mesh.DataParallel`): the images and
 captions are this rank's rows of the global batch; the forward, backward
 and update run under `mesh.active(dp)`, so the loss is this rank's part
-of the global mean, BatchNorm takes the global batch's statistics, the
-dropout masks are this rank's rows of the global batch's, and the
-optimizer sums the gradients over the data ranks once an applied update
-(`Accumulating`). Every rank then takes the same update. The returned
-loss and gradient norm are the global ones; under accumulation on more
-than one data rank a micro-step's gradient norm would need its own
-reduction of every gradient, and is NaN.
+of the global mean, BatchNorm takes the global batch's statistics and
+the dropout masks are this rank's rows of the global batch's. Each call
+sums its gradients over the data ranks right after the backward (one
+coalesced `reduce_grads`), before the norm and before the optimizer
+folds them into its window: the order of JAX's sharded step, whose
+`MultiSteps` sees the global batch's gradient. So every k, every world
+size and a split over 'model' (each shard's squares summed over that
+axis, `optim.global_norm`) take the same line for the norm, every rank
+holds the same window and takes the same update, and a call on n > 1
+ranks costs one gradient all-reduce, k an applied update. The returned
+loss and gradient norm are the global batch's.
 """
 
 from __future__ import annotations
@@ -59,12 +63,9 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
             # off) still has gradients, for the global norm
             model.zero_grad(set_to_none=True)
             loss.backward()
-            if optimizer.every > 1:        # the micro-step's own gradients
-                gnorm = (optim.global_norm(params) if dp.size == 1
-                         else torch.full((), float("nan")))
-            if optimizer.accumulate():     # summed over the data ranks
-                if optimizer.every == 1:
-                    gnorm = optim.global_norm(params)
+            dp.reduce_grads(p.grad for p in params)    # the global batch's
+            gnorm = optim.global_norm(params)
+            if optimizer.accumulate():
                 if clip_norm is not None:  # the norm of the window's mean
                     optim.clip_by_global_norm_(
                         params, clip_norm,

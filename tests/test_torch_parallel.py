@@ -24,9 +24,15 @@ this process computes the references:
   the sampler's keys), the sampled proposals identical, the losses and
   gradients within 1e-5 of their tensor's largest element (plus 1e-7),
   the weights and statistics after the steps as close.
-- `grad_accum_steps` 2 on 2 ranks against 2 on one process; a rank
-  whose every region is masked; `mesh_for_batch`'s cap as a pure function
-  against JAX's; `dryrun_multichip(2)`.
+- `grad_accum_steps` 2 on 2 ranks against 2 on one process (AlexCap
+  LSTM, GT, RPN), each micro-step's gradient norm included, and the LSTM
+  against JAX's step sharded over a 2-device 'data' mesh at k = 2; a
+  checkpoint that rank 0 writes mid-window through the drivers'
+  `train_state` / `save_checkpoint`, resumed by the world of 2 (bitwise
+  the unbroken run) and by one process (the world-size gate); the
+  gradient all-reduces of each applied update (`Axis.calls`: k on 2
+  ranks); a rank whose every region is masked; `mesh_for_batch`'s cap as
+  a pure function against JAX's; `dryrun_multichip(2)`.
 
 The ResNet families are held in fp64 on both sides: with BatchNorm in
 training mode over 4 images of 64², fp32 rounding moves their trunk
@@ -59,6 +65,7 @@ from imagecaptioning_tpu.models import api as jax_api
 from imagecaptioning_tpu.parallel import mesh as jax_mesh
 from imagecaptioning_tpu.train import dense_driver as jax_driver
 from imagecaptioning_tpu.train import optim as jax_optim
+from imagecaptioning_tpu.train import step as jax_step
 from imagecaptioning_tpu.utils import torch_port as jax_torch_port
 from imagecaptioning_tpu_torch import dryrun
 from imagecaptioning_tpu_torch.config import configs, dense_configs
@@ -77,6 +84,8 @@ STAGES = (1, 1, 1, 1)
 JAX_PARITY = ["lstm", "lstm_attention", "transformer", "gt", "rpn"]
 SCORE_WEIGHTS = ("llm.attention.W.", "llm.attention.U.", "llm.attention.v.")
 INVARIANCE_REL, INVARIANCE_ABS = 1e-5, 1e-7
+# the micro-step after which the world of 2 writes a checkpoint (k = 2)
+RESUME_AFTER = {"lstm": 3, "gt": 1}
 
 
 def _np(tree):
@@ -161,8 +170,9 @@ def _num_anchors(cfg, size=32):
 
 
 def _dense_case(kind, dropout, name, steps=1, accum=1, masked_rows=(),
-                jax_keys_rng=None):
-    cfg = _dense_cfg(kind, dropout).replace(grad_accum_steps=accum)
+                jax_keys_rng=None, **cfg_fields):
+    cfg = _dense_cfg(kind, dropout).replace(grad_accum_steps=accum,
+                                            **cfg_fields)
     batches = _dense_batches(kind, steps, masked_rows)
     case = {"name": name, "kind": kind, "cfg": cfg.to_dict(),
             "vocab": VOCAB, "seq": SEQ, "seed": 4,
@@ -173,9 +183,24 @@ def _dense_case(kind, dropout, name, steps=1, accum=1, masked_rows=(),
     return case, batches
 
 
-def _build_cases():
-    """{name: (case, what the JAX reference needs)}."""
+def _build_cases(tmp):
+    """{name: (case, what the JAX reference needs)}; the resume cases
+    write their checkpoints under `tmp`."""
     cases = {}
+    # first in the world of 2, which writes their checkpoints mid-window
+    # (the LSTM's in its second window of 2, with Adam's moments; the
+    # GT's, whose 4096-wide classifier makes a large file and a slow
+    # step, in its only one, over one VGG stage) for the resume cases,
+    # last in each world
+    for kind, at in RESUME_AFTER.items():
+        case, batches = (
+            _alexcap_case("lstm", True, "accum_lstm", accum=2, steps=4)
+            if kind == "lstm" else
+            _dense_case("gt", True, "accum_gt", steps=2, accum=2,
+                        vgg_stages=1))
+        case.update(exact=True, checkpoint=str(tmp / f"{kind}.ckpt"),
+                    save_after=at)
+        cases[f"accum_{kind}"] = case, batches
     for fam in ("lstm", "lstm_attention", "transformer"):
         steps = 1 if fam == "transformer" else 3
         cases[f"jax_{fam}"] = _alexcap_case(fam, False, f"jax_{fam}",
@@ -187,8 +212,10 @@ def _build_cases():
     cases["jax_rpn"] = _dense_case("rpn", False, "jax_rpn",
                                    jax_keys_rng=jax.random.PRNGKey(7))
     cases["inv_rpn"] = _dense_case("rpn", True, "inv_rpn", steps=2)
-    cases["accum_lstm"] = _alexcap_case("lstm", True, "accum_lstm", accum=2,
-                                        steps=4)
+    # the trunk frozen (a frozen model's step, JAX's gate closed)
+    case, batches = _alexcap_case("lstm", False, "jax_accum_lstm", accum=2,
+                                  steps=4)
+    cases["jax_accum_lstm"] = {**case, "frozen_until": 4}, batches
     cases["accum_rpn"] = _dense_case("rpn", True, "accum_rpn", steps=2,
                                      accum=2)
     cases["masked_gt"] = _dense_case("gt", True, "masked_gt",
@@ -198,6 +225,13 @@ def _build_cases():
     case, batches = _dense_case("gt", True, "model_gt", steps=2)
     case["mesh"] = ((-1, 2), ("data", "model"))
     cases["model_gt"] = case, batches
+    # the window's last micro-step from the world of 2's checkpoint: the
+    # optimizer's state, the window's mean and the generator in the file
+    for kind, at in RESUME_AFTER.items():
+        case, batches = cases[f"accum_{kind}"]
+        cases[f"resume_{kind}"] = {
+            **{k: v for k, v in case.items() if k != "save_after"},
+            "name": f"resume_{kind}", "resume_after": at}, batches
     return cases
 
 
@@ -343,6 +377,90 @@ def _jax_dense(case, batches):
             jcfg.learning_rate)
 
 
+def jax_sharded_steps(case, batches, mesh, vocab, seq):
+    """JAX's sharded steps of an AlexCap case in fp64: `make_train_step`'s
+    step, which also returns the gradients, jitted by `shard_train_step`
+    over `mesh` with the parameters placed by `infer_param_shardings` and
+    the batch over 'data'; the optimizer `make_optimizer`'s,
+    `grad_accum_steps` = k wrapping it in optax's `MultiSteps`, its gate
+    at the case's `frozen_until` micro-steps (a window's edge), until
+    which the frozen model's step runs → ([(loss, grad_norm, grads)] a
+    micro-step, the params and statistics after the last, lr), in the
+    port's names."""
+    cfg = configs.CaptionConfig(**case["cfg"])
+    pm = dp_check.initial_model(case)
+    variables, _ = jax_torch_port.convert_reference_captioner(
+        reference_layout(pm.state_dict()),
+        vit_heads=cfg.vit_dims[3] if cfg.vit_dims else 12)
+    with jax.enable_x64(True):
+        variables = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
+                                 variables)
+        jcfg = jax_configs.get_config(cfg.model_type).replace(
+            **{k: getattr(cfg, k) for k in (
+                "use_scheduler", "num_epochs", "learning_rate", "min_lr",
+                "eps", "weight_decay", "finetune_cnn", "trained_encoder",
+                "clip_grad", "grad_clip_norm", "beta1", "beta2",
+                "grad_accum_steps")})
+        frozen_until = case.get("frozen_until", 0)
+        tx = jax_optim.make_optimizer(jcfg, case["total_steps"],
+                                      frozen_until // cfg.grad_accum_steps)
+
+        def make(frozen):
+            model = jax_model(cfg, vocab, seq, freeze_encoder=frozen)
+            model = model.clone(compute_dtype=jnp.float64, **(
+                {"scan_unroll": 1} if hasattr(model, "scan_unroll") else {}))
+            return partial(train_step, model)
+
+        def train_step(model, state, images, gt):
+            def loss_fn(p):
+                v = {"params": p, **({"batch_stats": state.batch_stats}
+                                     if state.batch_stats else {})}
+                out, new_stats = jax_api.apply_train(model, v, images, gt)
+                return model.loss(out, gt), new_stats
+            (loss, new_stats), grads = jax.value_and_grad(
+                loss_fn, has_aux=True)(state.params)
+            updates, opt_state = tx.update(grads, state.opt_state,
+                                           state.params)
+            state = jax_step.TrainState(
+                state.step + 1, optax.apply_updates(state.params, updates),
+                opt_state, new_stats if state.batch_stats
+                else state.batch_stats, state.rng)
+            return state, {"loss": loss, "grad_norm": optax.global_norm(grads),
+                           "grads": grads}
+        params = variables["params"]
+        state = jax_step.TrainState(
+            jnp.array(0, jnp.int32), params, tx.init(params),
+            variables.get("batch_stats", {}), jax.random.PRNGKey(0))
+        shardings = jax_mesh.infer_param_shardings(params, mesh)
+        state = state._replace(params=jax.tree.map(jax.device_put, params,
+                                                   shardings))
+        steps = {frozen: jax_step.shard_train_step(make(frozen), mesh,
+                                                   shardings, state)
+                 for frozen in {i < frozen_until
+                                for i in range(len(batches))}}
+        data = jax_mesh.data_sharding(mesh)
+        out = []
+        for i, b in enumerate(batches):
+            state, m = steps[i < frozen_until](
+                state,
+                jax.device_put(jnp.asarray(b["images"], jnp.float64), data),
+                jax.device_put(jnp.asarray(b["gt"], jnp.int32), data))
+            out.append((float(m["loss"]), float(m["grad_norm"]),
+                        _port_names(m["grads"],
+                                    stats=_np(state.batch_stats))))
+        return (out, _port_names(state.params, stats=_np(state.batch_stats)),
+                cfg.learning_rate)
+
+
+def _jax_reference(name, case, batches):
+    if name == "jax_accum_lstm":        # a 2-device 'data' mesh
+        mesh = jax_mesh.create_mesh((WORLD,), ("data",),
+                                    jax.devices()[:WORLD])
+        return jax_sharded_steps(case, batches, mesh, VOCAB, SEQ)
+    return (_jax_alexcap if case["kind"] == "alexcap" else _jax_dense)(
+        case, batches)
+
+
 # ----------------------------------------------- the worlds of one and two
 
 def _launch(spec, out_dir, init, world):
@@ -405,11 +523,13 @@ def runs(tmp_path_factory):
     the world of 2 and the one-process world run while this process
     computes the JAX references."""
     tmp = tmp_path_factory.mktemp("dp")
-    cases = _build_cases()
+    cases = _build_cases(tmp)
     out = tmp / "out"
     out.mkdir()
     torch.save([c for c, _ in cases.values()], tmp / "spec2.pt")
-    torch.save([c for n, (c, _) in cases.items()
+    # the one process resumes the world of 2's checkpoints, writing none
+    torch.save([{k: v for k, v in c.items() if k != "save_after"}
+                for n, (c, _) in cases.items()
                 if not n.startswith(("jax_", "model_"))], tmp / "spec1.pt")
     procs = (_launch(tmp / "spec2.pt", out, f"file://{tmp / 'rdzv2'}", 2)
              + _launch(tmp / "spec1.pt", out, f"file://{tmp / 'rdzv1'}", 1))
@@ -420,10 +540,11 @@ def runs(tmp_path_factory):
         # beside the dry run's processes
         with ThreadPoolExecutor(4) as pool:
             dry = pool.submit(dryrun.dryrun_multichip, 2, device="cpu")
-            refs = {name: pool.submit(
-                _jax_alexcap if case["kind"] == "alexcap" else _jax_dense,
-                case, batches) for name, (case, batches) in cases.items()
-                if name.startswith("jax_")}
+            # the longest compiles first
+            refs = {name: pool.submit(_jax_reference, name, *cases[name])
+                    for name in ("jax_lstm_attention", "jax_lstm",
+                                 "jax_accum_lstm", "jax_rpn", "jax_gt",
+                                 "jax_transformer")}
             results = {name: {"case": case} for name, (case, _) in
                        cases.items()}
             for name, ref in refs.items():
@@ -486,7 +607,8 @@ def _ranks_agree(r):
     assert sorted(k for k in mine if not k.startswith(("draw", "sample"))) \
         == sorted(k for k in b if not k.startswith(("draw", "sample")))
     for key, v in mine.items():
-        if key.startswith(("loss/", "digest/", "gnorm/")):
+        if key.startswith(("loss/", "digest/", "gnorm/", "bits/",
+                           "reduces/")):
             np.testing.assert_array_equal(v, b[key], err_msg=key)
 
 
@@ -531,7 +653,13 @@ def test_world_of_two_matches_jax_single_device(runs, family):
                          "num_batches_tracked")):
                     assert not np.any(w), name
     # the weights after the last step: 2·lr an applied update
-    bound = 2 * lr * len(steps)
+    _weights_close(got, want, state, 2 * lr * len(steps))
+
+
+def _weights_close(got, want, state, bound):
+    """The weights of `got` within `bound` of JAX's `state` (their
+    projections within the bound's share), BatchNorm's statistics within
+    rtol 1e-3, atol 1e-5; `want` is `state` `compact`ed."""
     for name, w in state.items():
         key = f"state/{name}"
         if name.endswith(("running_mean", "running_var")):
@@ -564,8 +692,8 @@ def _invariant(r):
         if key.startswith("sample/"):
             np.testing.assert_array_equal(
                 np.concatenate([a[key], b[key]]), one[key], err_msg=key)
-        elif key.startswith(("loss/", "gnorm/")) and \
-                np.isfinite(a[key]).all():
+        elif key.startswith(("loss/", "gnorm/")):
+            assert np.isfinite(a[key]).all(), key
             _close(a[key], one[key], INVARIANCE_REL, INVARIANCE_ABS, key)
     for prefix in ["state/"] + sorted({"/".join(k.split("/")[:2]) + "/"
                                        for k in one if k.startswith("grad/")}):
@@ -596,17 +724,115 @@ def test_world_of_two_matches_one_process_with_dropout_and_sampler(
                                   start[stats[0][len("state/"):]].numpy())
 
 
-@pytest.mark.parametrize("kind", ["accum_lstm", "accum_rpn"])
+@pytest.mark.parametrize("kind", ["accum_lstm", "accum_rpn", "accum_gt"])
 def test_accumulation_on_two_ranks_matches_one_process(runs, kind):
     one = _invariant(runs[kind])
-    # one reduction per applied update: 2 windows of 2 (LSTM), 1 (RPN)
+    # the applied updates: 2 windows of 2 (LSTM), 1 (RPN, GT)
     updates = {k.split("/")[1] for k in one if k.startswith("grad/")}
     updates |= {k.split("/")[2] for k in one if k.startswith("proj/grad/")}
     assert len(updates) == (2 if kind == "accum_lstm" else 1)
-    # a micro-step's own gradient norm would need every gradient reduced
+    # every micro-step's own gradient norm, the global batch's (`_invariant`
+    # holds it to the one process's within INVARIANCE_REL)
     if kind == "accum_lstm":
-        assert np.isnan(runs[kind]["world2"][0]["gnorm/0"])
-        assert np.isfinite(one["gnorm/0"])
+        norms = [runs[kind]["world2"][0][f"gnorm/{i}"] for i in range(4)]
+        assert np.isfinite(norms).all() and min(norms) > 0
+
+
+def test_accumulation_on_two_ranks_matches_jax_sharded_step(runs):
+    """The AlexCap LSTM at grad_accum_steps 2 over two windows (fp64,
+    dropout off, the trunk frozen) on 2 ranks against JAX's step at
+    k = 2 sharded over a 2-device 'data' mesh: each micro-step's loss and
+    gradient norm within 1e-4 relative, each applied update's gradient
+    (the mean of its window's) within 1e-4 of its tensor's largest
+    element, the weights within 2·lr an applied update and BatchNorm's
+    statistics as `test_world_of_two_matches_jax_single_device` holds
+    them."""
+    r = runs["jax_accum_lstm"]
+    _ranks_agree(r)
+    got = r["world2"][0]
+    steps, state, lr = r["jax"]
+    k = r["case"]["cfg"]["grad_accum_steps"]
+    assert k == 2 and len(steps) == 4
+    for i, (loss, norm, _) in enumerate(steps):
+        assert float(got[f"loss/{i}"]) == pytest.approx(loss, rel=1e-4)
+        assert float(got[f"gnorm/{i}"]) == pytest.approx(norm, rel=1e-4), i
+    updates = len(steps) // k
+    means = {}
+    for u in range(updates):
+        names = _tensors(got, f"grad/{u}/")
+        assert names, "no gradients recorded"
+        window = [g for _, _, g in steps[u * k:(u + 1) * k]]
+        for name in names:
+            means[f"grad/{u}/{name}"] = np.mean([g[name] for g in window], 0)
+    want = dp_check.compact(
+        {**means, **{f"state/{k}": v for k, v in state.items()}})
+    for key in means:
+        _tensor_close(got, want, key, 1e-4)
+    _weights_close(got, want, state, 2 * lr * updates)
+
+
+@pytest.mark.parametrize("kind", list(RESUME_AFTER))
+def test_mid_window_checkpoint_resumes_on_any_world_size(runs, kind):
+    """Accumulation at k = 2 on 2 ranks (dropout on), rank 0 writing the
+    drivers' `train_state` mid-window (`RESUME_AFTER`) and every rank
+    building its model, optimizer and generator anew from that file: the
+    window's other micro-steps, its update, the weights, BatchNorm's
+    statistics and the optimizer's moments are bitwise the unbroken world
+    of 2's. One process that resumes the same file ends within the
+    world-size gate (INVARIANCE_REL of each tensor's largest element,
+    plus INVARIANCE_ABS)."""
+    _ranks_agree(runs[f"resume_{kind}"])
+    whole = runs[f"accum_{kind}"]["world2"][0]
+    resumed = runs[f"resume_{kind}"]["world2"][0]
+    at = RESUME_AFTER[kind]
+    # the micro-steps and updates after the checkpoint
+    after = tuple(f"{p}/{i}" for i in range(at, 4) for p in ("loss", "gnorm"))
+    after += tuple(f"{p}/{u}/" for u in range(at // 2, 2)
+                   for p in ("grad", "proj/grad"))
+    last = sorted(k for k in whole if k.startswith(after))
+    assert any("grad/" in k for k in last)
+    assert last == sorted(k for k in resumed if k.startswith(
+        ("loss/", "gnorm/", "grad/", "proj/grad/")))
+    for key in last:
+        np.testing.assert_array_equal(resumed[key], whole[key], err_msg=key)
+    bits = sorted(k for k in whole if k.startswith("bits/"))
+    assert any(k.startswith("bits/moment/") for k in bits)
+    assert any(k.endswith("running_mean") for k in bits) == (kind == "lstm")
+    assert sorted(k for k in resumed if k.startswith("bits/")) == bits
+    for key in bits:
+        np.testing.assert_array_equal(resumed[key], whole[key], err_msg=key)
+    one = runs[f"resume_{kind}"]["world1"]
+    for key in last:
+        if not key.startswith(("grad/", "proj/")):
+            _close(one[key], whole[key], INVARIANCE_REL, INVARIANCE_ABS, key)
+    prefixes = ["state/"] + sorted(
+        {"/".join(k.split("/")[:2]) + "/" for k in one
+         if k.startswith("grad/")})
+    for prefix in prefixes:
+        names = _tensors(whole, prefix)
+        assert names and names == _tensors(one, prefix), prefix
+        for name in names:
+            if name.endswith("num_batches_tracked"):
+                np.testing.assert_array_equal(one[prefix + name],
+                                              whole[prefix + name])
+                continue
+            _tensor_close(one, whole, prefix + name, INVARIANCE_REL,
+                          INVARIANCE_ABS)
+
+
+@pytest.mark.parametrize("name,k", [
+    ("accum_lstm", 2), ("accum_gt", 2), ("accum_rpn", 2), ("inv_lstm", 1),
+    ("inv_gt", 1), ("inv_rpn", 1)])
+def test_gradient_all_reduces_per_applied_update(runs, name, k):
+    """The data axis's collectives in the steps' gradient reductions
+    (`Axis.calls`): one a micro-step on 2 ranks, so k an applied update at
+    grad_accum_steps k (one at k = 1, as before accumulation reduced every
+    micro-step); none on one process."""
+    a, one = runs[name]["world2"][0], runs[name]["world1"]
+    counts = [int(a[key]) for key in sorted(a) if key.startswith("reduces/")]
+    assert counts and counts == [k] * len(counts)
+    assert all(int(one[key]) == 0 for key in one
+               if key.startswith("reduces/"))
 
 
 def test_a_rank_whose_regions_are_all_masked(runs):

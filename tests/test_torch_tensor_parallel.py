@@ -23,6 +23,10 @@ JAX references and `dryrun_multichip(4)` runs in its own world:
   2e-3, atol 2e-5, 2e-3 across the boundary; BatchNorm statistics rtol
   1e-3, atol 1e-5), and each gradient within 1e-4 of its tensor's largest
   element;
+- accumulation: the ViT split at grad_accum_steps 2,
+  each micro-step's gradient norm and the weights after the window's
+  update against JAX's step sharded by `infer_param_shardings` over a
+  (2, 2) mesh, and against the port's unsplit one-process run;
 - world-size invariance (dropout on): the split world against the port's
   own one-process step, the ViT included: every draw identical on the
   two model ranks of a data index and, joined over the data ranks, to the
@@ -66,7 +70,7 @@ from imagecaptioning_tpu_torch.utils.weights import (
     captioner_state_dict_from_jax)
 from test_torch_alexcap_families import jax_model, reference_layout
 from test_torch_parallel import (_close, _np, _port_names, _tensor_close,
-                                 _tensors, _wait)
+                                 _tensors, _wait, jax_sharded_steps)
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD, MESH = 4, ((2, 2), ("data", "model"))
@@ -99,10 +103,10 @@ def _cfg(family, dropout=False, **kw):
 
 # ------------------------------------------------------------- the cases
 
-def _case(family, dropout, name, steps):
+def _case(family, dropout, name, steps, accum=1):
     """4 images a step (2 a data rank); the LSTM families frozen for 2
-    steps then finetuned; fp64."""
-    cfg = _cfg(family, dropout)
+    steps then finetuned; `accum` micro-steps an update; fp64."""
+    cfg = _cfg(family, dropout, grad_accum_steps=accum)
     size = 32 if family == "vitb" else 64
     rng = np.random.RandomState(13)
     batches = []
@@ -127,6 +131,10 @@ def _build_cases():
     for fam in INVARIANT:
         cases[f"inv_{fam}"] = _case(fam, True, f"inv_{fam}",
                                     3 if fam.startswith("lstm") else 2)
+    # one window of 2 micro-steps, held against JAX and the one process:
+    # the ViT, the cheapest split captioner to compile here (its encoder
+    # trains and splits too)
+    cases["accum_vitb"] = _case("vitb", False, "accum_vitb", 2, accum=2)
     return cases
 
 
@@ -212,18 +220,22 @@ def runs(tmp_path_factory):
     out.mkdir()
     split = [{**c, "split": True, "mesh": MESH} for c, _ in cases.values()]
     torch.save(split, tmp / "spec4.pt")
-    torch.save([c for n, (c, _) in cases.items() if n.startswith("inv_")],
-               tmp / "spec1.pt")
+    torch.save([c for n, (c, _) in cases.items()
+                if n.startswith(("inv_", "accum_"))], tmp / "spec1.pt")
     procs = (_launch(tmp / "spec4.pt", out, f"file://{tmp / 'rdzv4'}",
                      WORLD)
              + _launch(tmp / "spec1.pt", out, f"file://{tmp / 'rdzv1'}", 1))
     results = {name: {"case": case} for name, (case, _) in cases.items()}
     try:
-        with ThreadPoolExecutor(4) as pool:
+        with ThreadPoolExecutor(5) as pool:
             dry = pool.submit(dryrun.dryrun_lines, WORLD, device="cpu")
-            refs = {name: pool.submit(_jax_alexcap, case, batches)
-                    for name, (case, batches) in cases.items()
-                    if name.startswith("jax_")}
+            refs = {"accum_vitb": pool.submit(
+                jax_sharded_steps, *cases["accum_vitb"],
+                jax_mesh.create_mesh(*MESH, jax.devices()[:WORLD]), VOCAB,
+                SEQ)}
+            refs.update({name: pool.submit(_jax_alexcap, case, batches)
+                         for name, (case, batches) in cases.items()
+                         if name.startswith("jax_")})
             for name, ref in refs.items():
                 results[name]["jax"] = ref.result()
             results["dryrun"] = dry.result()
@@ -239,7 +251,7 @@ def runs(tmp_path_factory):
         results[name]["ranks"] = [
             dict(np.load(out / f"{name}_w{WORLD}_r{rank}.npz"))
             for rank in range(WORLD)]
-        if name.startswith("inv_"):
+        if name.startswith(("inv_", "accum_")):
             results[name]["world1"] = dict(np.load(out / f"{name}_w1_r0.npz"))
     return results
 
@@ -416,7 +428,15 @@ def test_split_step_matches_jax_single_device(runs, family):
                 continue
             _tensor_close(got, want, f"grad/{i}/{name}", 1e-4)
     # tests/test_parallel.py's tolerances on the weights after the steps
-    atol = 2e-3 if "frozen_until" in r["case"] else 2e-5
+    _jax_weights_close(got, state,
+                       2e-3 if "frozen_until" in r["case"] else 2e-5)
+
+
+def _jax_weights_close(got, state, atol):
+    """The weights of `got` against JAX's `state` at
+    `tests/test_parallel.py`'s tolerances (rtol 2e-3 and `atol`;
+    BatchNorm's statistics rtol 1e-3, atol 1e-5), a projected tensor
+    within the bound carried through its projection."""
     for name, w in state.items():
         key = f"state/{name}"
         if name.endswith("num_batches_tracked"):
@@ -437,6 +457,47 @@ def test_split_step_matches_jax_single_device(runs, family):
                 ("cols", got[f"proj/{key}/cols"] - v @ mat,
                  a * np.abs(v).sum() + rtol * np.abs(v) @ np.abs(mat))):
             assert np.all(np.abs(diff) <= bound), (name, part)
+
+
+def test_split_accumulation_matches_jax_sharded_step_and_one_process(runs):
+    """The ViT captioner split over ('data', 'model') = (2, 2) at
+    grad_accum_steps 2, one window (fp64, dropout off, the encoder
+    training): each micro-step's gradient norm, where `global_norm` sums
+    each shard's squares over 'model' after the step's `reduce_grads`
+    summed the shards over 'data', the window's gradient and the weights
+    after its update, against JAX's step at k = 2 sharded by
+    `infer_param_shardings` over a (2, 2) mesh at
+    `test_split_step_matches_jax_single_device`'s gates (loss and norm
+    1e-4 relative), and against the port's unsplit one process at
+    INVARIANCE_REL of each tensor's largest element plus
+    INVARIANCE_ABS."""
+    r = runs["accum_vitb"]
+    _ranks_agree(r)
+    got, one = r["ranks"][0], r["world1"]
+    assert any(".mlp." in n for n in got["split_params"])
+    steps, state, _ = r["jax"]
+    assert len(steps) == 2 and r["case"]["cfg"]["grad_accum_steps"] == 2
+    for i, (loss, norm, _) in enumerate(steps):
+        assert float(got[f"loss/{i}"]) == pytest.approx(loss, rel=1e-4)
+        assert float(got[f"gnorm/{i}"]) == pytest.approx(norm, rel=1e-4), i
+        for key in (f"loss/{i}", f"gnorm/{i}"):
+            _close(got[key], one[key], INVARIANCE_REL, INVARIANCE_ABS, key)
+    names = _tensors(got, "grad/0/")
+    assert names and names == _tensors(one, "grad/0/")
+    means = {f"grad/0/{n}": np.mean([g[n] for _, _, g in steps], 0)
+             for n in names}
+    want = dp_check.compact(means)
+    for key in means:
+        _tensor_close(got, want, key, 1e-4)
+        _tensor_close(got, one, key, INVARIANCE_REL, INVARIANCE_ABS)
+    _jax_weights_close(got, state, 2e-5)
+    for name in _tensors(one, "state/"):
+        if name.endswith("num_batches_tracked"):
+            np.testing.assert_array_equal(got["state/" + name],
+                                          one["state/" + name])
+            continue
+        _tensor_close(got, one, "state/" + name, INVARIANCE_REL,
+                      INVARIANCE_ABS)
 
 
 # --------------------------------------- (c) world-size invariance
