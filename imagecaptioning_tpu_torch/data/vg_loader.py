@@ -35,6 +35,7 @@ import torch
 
 from imagecaptioning_tpu_torch import native
 from imagecaptioning_tpu_torch.data.tokenizer import Vocab
+from imagecaptioning_tpu_torch.utils.profiling import span
 
 # ImageNet statistics used by the reference (DataLoader.py:57-58).
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
@@ -247,10 +248,11 @@ def normalize_images(images_u8: torch.Tensor,
                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """uint8 (B, H, W, 3) → ImageNet-normalized float on the tensor's own
     device — the reference's ToTensor+Normalize (DataLoader.py:142-146)."""
-    mean = torch.from_numpy(IMAGENET_MEAN).to(images_u8.device)
-    std = torch.from_numpy(IMAGENET_STD).to(images_u8.device)
-    x = images_u8.to(torch.float32) / 255.0
-    x = (x - mean) / std
-    if dtype is not None:
-        x = x.to(dtype)
-    return x
+    with span("data.normalize"):
+        mean = torch.from_numpy(IMAGENET_MEAN).to(images_u8.device)
+        std = torch.from_numpy(IMAGENET_STD).to(images_u8.device)
+        x = images_u8.to(torch.float32) / 255.0
+        x = (x - mean) / std
+        if dtype is not None:
+            x = x.to(dtype)
+        return x

@@ -41,6 +41,7 @@ from imagecaptioning_tpu_torch.models import decoding
 from imagecaptioning_tpu_torch.models.captioners import (AttentionCaptioner,
                                                          TransformerCaptioner,
                                                          ViTCaptioner)
+from imagecaptioning_tpu_torch.utils.profiling import span
 
 
 def make_step_fn(model, max_steps: int, beam_size: int = 1,
@@ -148,10 +149,11 @@ def make_region_greedy_fn(model, max_steps: int) -> Callable:
 
     @torch.inference_mode()
     def run(images, boxes):
-        flat_enc = model.encode_flat(images, boxes)
-        carry, step = model.init_decode(flat_enc, max_steps=max_steps)
-        return decoding.greedy_decode(step, carry, flat_enc.shape[0],
-                                      model.spec.start, max_steps)
+        with span("gt.greedy"):
+            flat_enc = model.encode_flat(images, boxes)
+            carry, step = model.init_decode(flat_enc, max_steps=max_steps)
+            return decoding.greedy_decode(step, carry, flat_enc.shape[0],
+                                          model.spec.start, max_steps)
     return run
 
 

@@ -33,6 +33,8 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from imagecaptioning_tpu_torch.utils.profiling import count, span
+
 DecodeStep = Callable[[Any, torch.Tensor, int], Tuple]
 NEG = -1e30
 
@@ -69,18 +71,24 @@ def greedy_decode(step_fn: DecodeStep, carry: Any, batch: int,
                   collect_alphas: bool = False):
     """Greedy argmax decode for a fixed step count → tokens (B, max_steps),
     or (tokens, alphas (B, max_steps, P)) with `collect_alphas`. `argmax`
-    takes the first maximum, as `jnp.argmax` does."""
-    device = _first_leaf(carry).device
-    tok = torch.full((batch, 1), start_token, dtype=torch.long, device=device)
-    out, alphas = [], []
-    for t in range(max_steps):
-        carry, logits, *step_alphas = step_fn(carry, tok, t)
-        tok = logits.argmax(dim=-1, keepdim=True)
-        out.append(tok)
-        if collect_alphas:
-            alphas.append(step_alphas[0].float())
-    tokens = torch.cat(out, dim=1)
-    return (tokens, torch.stack(alphas, dim=1)) if collect_alphas else tokens
+    takes the first maximum, as `jnp.argmax` does. Counts its calls and
+    steps (`decode.calls`, `decode.steps`)."""
+    count("decode.calls")
+    count("decode.steps", max_steps)
+    with span("decode.greedy"):
+        device = _first_leaf(carry).device
+        tok = torch.full((batch, 1), start_token, dtype=torch.long,
+                         device=device)
+        out, alphas = [], []
+        for t in range(max_steps):
+            carry, logits, *step_alphas = step_fn(carry, tok, t)
+            tok = logits.argmax(dim=-1, keepdim=True)
+            out.append(tok)
+            if collect_alphas:
+                alphas.append(step_alphas[0].float())
+        tokens = torch.cat(out, dim=1)
+        return ((tokens, torch.stack(alphas, dim=1)) if collect_alphas
+                else tokens)
 
 
 class BeamResult(NamedTuple):

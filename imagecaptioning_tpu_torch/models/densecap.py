@@ -55,6 +55,7 @@ from imagecaptioning_tpu_torch.ops.box_sampler import (SampleResult,
 from imagecaptioning_tpu_torch.ops.nms import nms
 from imagecaptioning_tpu_torch.ops.roi_align import roi_align_batch_chw
 from imagecaptioning_tpu_torch.parallel import mesh
+from imagecaptioning_tpu_torch.utils.profiling import span
 
 
 class GTDenseOutput(NamedTuple):
@@ -108,15 +109,19 @@ class GTDenseCaptioner(nn.Module):
                        ) -> torch.Tensor:
         """images (N, H, W, 3) normalized, gt_boxes (N, R, 4) xcycwh in
         image coords → region codes (N, R, 4096) fp32."""
-        feats = self.features(images)     # (N, Hf, Wf, C) view, compute dtype
+        with span("gt.trunk"):
+            feats = self.features(images)   # (N, Hf, Wf, C) view
         ih, iw = images.shape[1], images.shape[2]
         # one pass from the trunk's output to fc6's input: pooled codes
         # flattened in the reference's CHW row order, in fc6's dtype; the
         # boxes are data, so only the features' gradient is taken
-        flat = roi_align_batch_chw(feats, gt_boxes.float().contiguous(),
-                                   (float(ih), float(iw)), self.roi_size,
-                                   out_dtype=self.compute_dtype)
-        return self.classifier(flat, train=train, generator=generator).float()
+        with span("gt.roi"):
+            flat = roi_align_batch_chw(feats, gt_boxes.float().contiguous(),
+                                       (float(ih), float(iw)), self.roi_size,
+                                       out_dtype=self.compute_dtype)
+        with span("gt.classifier"):
+            return self.classifier(flat, train=train,
+                                   generator=generator).float()
 
     def forward(self, images: torch.Tensor, gt_boxes: torch.Tensor,
                 gt_labels: torch.Tensor, train: bool = False,
@@ -179,10 +184,11 @@ class GTDenseCaptioner(nn.Module):
         """Decode-ready per-region conditioning: the raw codes (N*R, 1,
         4096) for the LSTM head, the encoder output (N*R, 1, E) for the
         transformer."""
-        codes = self.encode_regions(images, gt_boxes)
-        n, r, d = codes.shape
-        flat = codes.reshape(n * r, 1, d)
-        return flat if self.use_lstm else self.llm.encode(flat)
+        with span("gt.encode"):
+            codes = self.encode_regions(images, gt_boxes)
+            n, r, d = codes.shape
+            flat = codes.reshape(n * r, 1, d)
+            return flat if self.use_lstm else self.llm.encode(flat)
 
     def init_decode(self, flat_enc: torch.Tensor, beam_size: int = 1,
                     max_steps: Optional[int] = None
@@ -365,25 +371,28 @@ class DenseCapRPN(nn.Module):
     def rpn_forward(self, feats: torch.Tensor) -> RPNOutput:
         """The trunk's output (N, Hf, Wf, C) → every anchor's proposal,
         score and deltas, flattened in (row, column, anchor) order."""
-        dtype = self.compute_dtype
-        conv = self.rpn_conv
-        x = F.conv2d(feats.permute(0, 3, 1, 2), conv.weight.to(dtype),
-                     conv.bias.to(dtype), padding=1)
-        # NHWC fp32 (a view of the channels_last output), so the 1×1 heads
-        # are products whose outputs are laid out as JAX flattens them
-        x = F.relu(x).float().permute(0, 2, 3, 1)
-        n, hf, wf, _ = x.shape
-        scores = F.linear(x, self.rpn_scores.weight.flatten(1),
-                          self.rpn_scores.bias).reshape(n, -1)
-        trans = F.linear(x, self.rpn_trans.weight.flatten(1),
-                         self.rpn_trans.bias).reshape(n, -1, 4)
-        # the trunk pools (stages − 1) times: stride 2^(stages − 1)
-        x0, y0, sx, sy = boxlib.field_centers(self.vgg_stages - 1)
-        anchors = boxlib.make_anchors(self.anchor_wh, x0, y0, sx, sy, hf, wf)
-        anchors = anchors.permute(1, 2, 0, 3).reshape(-1, 4)
-        proposals = boxlib.apply_box_transform(
-            anchors, trans, max_log_scale=self.box_transform_clamp)
-        return RPNOutput(proposals, scores, trans, anchors)
+        with span("rpn.head"):
+            dtype = self.compute_dtype
+            conv = self.rpn_conv
+            x = F.conv2d(feats.permute(0, 3, 1, 2), conv.weight.to(dtype),
+                         conv.bias.to(dtype), padding=1)
+            # NHWC fp32 (a view of the channels_last output), so the 1×1
+            # heads are products whose outputs are laid out as JAX
+            # flattens them
+            x = F.relu(x).float().permute(0, 2, 3, 1)
+            n, hf, wf, _ = x.shape
+            scores = F.linear(x, self.rpn_scores.weight.flatten(1),
+                              self.rpn_scores.bias).reshape(n, -1)
+            trans = F.linear(x, self.rpn_trans.weight.flatten(1),
+                             self.rpn_trans.bias).reshape(n, -1, 4)
+            # the trunk pools (stages − 1) times: stride 2^(stages − 1)
+            x0, y0, sx, sy = boxlib.field_centers(self.vgg_stages - 1)
+            anchors = boxlib.make_anchors(self.anchor_wh, x0, y0, sx, sy, hf,
+                                          wf)
+            anchors = anchors.permute(1, 2, 0, 3).reshape(-1, 4)
+            proposals = boxlib.apply_box_transform(
+                anchors, trans, max_log_scale=self.box_transform_clamp)
+            return RPNOutput(proposals, scores, trans, anchors)
 
     def proposals_only(self, images: torch.Tensor) -> RPNOutput:
         """The raw proposal field for `images` (before sampling and NMS),
@@ -434,17 +443,20 @@ class DenseCapRPN(nn.Module):
         `generator` when None, which also draws the dropout masks when
         `train`."""
         image_hw = (float(images.shape[1]), float(images.shape[2]))
-        feats = self.conv_trunk(images)
+        with span("rpn.trunk"):
+            feats = self.conv_trunk(images)
         rpn = self.rpn_forward(feats)
-        if keys is None:
-            keys = self.draw_keys(images.shape[0], rpn.scores.shape[1],
-                                  generator, images.device)
-        s = self.sample_regions(rpn, gt_boxes, gt_mask, keys, image_hw)
-        # positives, then negatives: the regions of the heads below
-        all_boxes = _take(rpn.proposals, torch.cat([s.pos_idx, s.neg_idx], 1))
-        pos_boxes = all_boxes[:, :self.num_pos]
-        pos_targets = _take(gt_boxes, s.pos_target_idx)
-        obj_w = torch.cat([s.pos_mask, s.neg_mask], 1).float()
+        with span("rpn.sampler"):
+            if keys is None:
+                keys = self.draw_keys(images.shape[0], rpn.scores.shape[1],
+                                      generator, images.device)
+            s = self.sample_regions(rpn, gt_boxes, gt_mask, keys, image_hw)
+            # positives, then negatives: the regions of the heads below
+            all_boxes = _take(rpn.proposals,
+                              torch.cat([s.pos_idx, s.neg_idx], 1))
+            pos_boxes = all_boxes[:, :self.num_pos]
+            pos_targets = _take(gt_boxes, s.pos_target_idx)
+            obj_w = torch.cat([s.pos_mask, s.neg_mask], 1).float()
 
         def objectness_loss(pos_scores, neg_scores):
             """The masked LogisticCriterion per image (targets 1, then 0)."""
@@ -452,35 +464,39 @@ class DenseCapRPN(nn.Module):
             return ((losses.softplus(signed) * obj_w).sum(1)
                     / obj_w.sum(1).clamp_min(1.0))
 
-        mid_obj = objectness_loss(rpn.scores.gather(1, s.pos_idx),
-                                  rpn.scores.gather(1, s.neg_idx))
-        mid_reg = losses.box_regression_loss(
-            _take(rpn.trans, s.pos_idx),
-            boxlib.invert_box_transform(rpn.anchors[s.pos_idx], pos_targets),
-            valid_mask=s.pos_mask)
+        with span("rpn.roi_heads"):
+            mid_obj = objectness_loss(rpn.scores.gather(1, s.pos_idx),
+                                      rpn.scores.gather(1, s.neg_idx))
+            mid_reg = losses.box_regression_loss(
+                _take(rpn.trans, s.pos_idx),
+                boxlib.invert_box_transform(rpn.anchors[s.pos_idx],
+                                            pos_targets),
+                valid_mask=s.pos_mask)
 
-        codes = self.region_codes(feats, all_boxes, image_hw, train,
-                                  generator)
-        end_scores = self.objectness(codes.float())[..., 0]
-        end_obj = objectness_loss(end_scores[:, :self.num_pos],
-                                  end_scores[:, self.num_pos:])
-        pos_codes = codes[:, :self.num_pos].float()
-        end_reg = losses.box_regression_loss(
-            self.box_reg(pos_codes),
-            boxlib.invert_box_transform(pos_boxes, pos_targets),
-            valid_mask=s.pos_mask)
+            codes = self.region_codes(feats, all_boxes, image_hw, train,
+                                      generator)
+            end_scores = self.objectness(codes.float())[..., 0]
+            end_obj = objectness_loss(end_scores[:, :self.num_pos],
+                                      end_scores[:, self.num_pos:])
+            pos_codes = codes[:, :self.num_pos].float()
+            end_reg = losses.box_regression_loss(
+                self.box_reg(pos_codes),
+                boxlib.invert_box_transform(pos_boxes, pos_targets),
+                valid_mask=s.pos_mask)
 
-        # means over the global batch (this rank's part in a data-parallel
-        # step); box_decay is a sum, whose part is the local sum
-        dp = mesh.current()
-        terms = {"mid_objectness": dp.mean(mid_obj),
-                 "mid_box_reg": dp.mean(mid_reg),
-                 "end_objectness": dp.mean(end_obj),
-                 "end_box_reg": dp.mean(end_reg)}
+            # means over the global batch (this rank's part in a
+            # data-parallel step); box_decay is a sum, whose part is the
+            # local sum
+            dp = mesh.current()
+            terms = {"mid_objectness": dp.mean(mid_obj),
+                     "mid_box_reg": dp.mean(mid_reg),
+                     "end_objectness": dp.mean(end_obj),
+                     "end_box_reg": dp.mean(end_reg)}
         if self.with_captioning:
-            terms["captioning"] = self._caption_loss(
-                pos_codes, _take(gt_labels, s.pos_target_idx), s.pos_mask,
-                train, generator)
+            with span("rpn.caption"):
+                terms["captioning"] = self._caption_loss(
+                    pos_codes, _take(gt_labels, s.pos_target_idx),
+                    s.pos_mask, train, generator)
         out = {k: self.weights[k] * v for k, v in terms.items()}
         out["total"] = sum(out.values())
         out["box_decay"] = (0.5 * self.box_reg_decay

@@ -55,8 +55,7 @@ rendered boxes.
 from __future__ import annotations
 
 import os
-import time
-from contextlib import closing
+from contextlib import ExitStack, closing
 from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
@@ -79,10 +78,14 @@ from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
 from imagecaptioning_tpu_torch.utils import pretrained, profiling
 from imagecaptioning_tpu_torch.utils.io import LossHistory, ResultsHistory
 from imagecaptioning_tpu_torch.utils.platform import resolve_device
+from imagecaptioning_tpu_torch.utils.profiling import count, span
 from imagecaptioning_tpu_torch.utils.tb import TBWriter
 from imagecaptioning_tpu_torch.utils.weights import seeded_init_
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the loop's steps (counted from its start, the first three left out as
+# warm-up) that `profile_dir` traces: [3, 13)
+PROFILED_STEPS = (3, 13)
 # the VGG trunk's module name in the GT model and in the RPN model
 TRUNKS = ("features", "conv_trunk")
 # torchvision vgg16.features indices of conv1_* and conv2_* (with their
@@ -268,20 +271,29 @@ def make_gt_train_step(model: GTDenseCaptioner, optimizer: DenseAdam,
     dp = dp or meshlib.IDENTITY
 
     def train_step(images_u8, boxes, labels, mask, teacher_prob):
-        with meshlib.active(dp):
-            x = normalize_images(images_u8, dtype=model.compute_dtype)
-            out = model(x, boxes, labels, train=True,
-                        teacher_prob=teacher_prob if use_curriculum else None,
-                        generator=generator)
-            loss = model.loss(out, labels, mask)
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            # the global batch's gradient, before the window's mean
-            dp.reduce_grads(p.grad for p in optimizer.accumulated.values())
-            if optimizer.accumulate():
-                optimizer.step()
-        return dp.all_sum(loss.detach())
+        with span("dense.step"):
+            with meshlib.active(dp):
+                x = normalize_images(images_u8, dtype=model.compute_dtype)
+                out = model(x, boxes, labels, train=True,
+                            teacher_prob=(teacher_prob if use_curriculum
+                                          else None),
+                            generator=generator)
+                loss = model.loss(out, labels, mask)
+                optimizer.zero_grad(set_to_none=True)
+                with span("dense.backward"):
+                    loss.backward()
+                _update(optimizer, dp)
+            return dp.all_sum(loss.detach())
     return train_step
+
+
+def _update(optimizer: DenseAdam, dp: meshlib.DataParallel) -> None:
+    """The global batch's gradient, summed over the data ranks before the
+    window's mean, then an update at the window's end."""
+    with span("dense.update"):
+        dp.reduce_grads(p.grad for p in optimizer.accumulated.values())
+        if optimizer.accumulate():
+            optimizer.step()
 
 
 def make_rpn_train_step(model: DenseCapRPN, optimizer: DenseAdam,
@@ -299,21 +311,20 @@ def make_rpn_train_step(model: DenseCapRPN, optimizer: DenseAdam,
     dp = dp or meshlib.IDENTITY
 
     def train_step(images_u8, boxes, mask, labels, keys=None):
-        with meshlib.active(dp):
-            x = normalize_images(images_u8, dtype=model.compute_dtype)
-            losses = model(x, boxes, mask, labels, keys=keys, train=True,
-                           generator=generator)
-            optimizer.zero_grad(set_to_none=True)
-            losses["total"].backward()
-            # the global batch's gradient, before the window's mean
-            dp.reduce_grads(p.grad for p in optimizer.accumulated.values())
-            if optimizer.accumulate():
-                optimizer.step()
-        if dp.size == 1:
-            return {k: v.detach() for k, v in losses.items()}
-        summed = dp.all_sum(torch.stack([v.detach().float()
-                                         for v in losses.values()]))
-        return dict(zip(losses, summed.unbind()))
+        with span("dense.step"):
+            with meshlib.active(dp):
+                x = normalize_images(images_u8, dtype=model.compute_dtype)
+                losses = model(x, boxes, mask, labels, keys=keys, train=True,
+                               generator=generator)
+                optimizer.zero_grad(set_to_none=True)
+                with span("dense.backward"):
+                    losses["total"].backward()
+                _update(optimizer, dp)
+            if dp.size == 1:
+                return {k: v.detach() for k, v in losses.items()}
+            summed = dp.all_sum(torch.stack([v.detach().float()
+                                             for v in losses.values()]))
+            return dict(zip(losses, summed.unbind()))
     return train_step
 
 
@@ -331,11 +342,16 @@ def _endless_batches(loader: VGDataLoader, cfg: DenseConfig,
 def to_device(batch: Dict[str, np.ndarray], device: torch.device,
               rows: slice = slice(None)):
     """A loader batch's `rows` (a data rank's; all by default) → (images
-    u8, boxes, labels long, box mask) on `device`."""
-    return (torch.from_numpy(batch["image"][rows]).to(device),
-            torch.from_numpy(batch["boxes"][rows]).to(device),
-            torch.from_numpy(batch["labels"][rows]).to(device).long(),
-            torch.from_numpy(batch["box_mask"][rows]).to(device))
+    u8, boxes, labels long, box mask) on `device`. Counts the batches and
+    the bytes of the rows copied (`to_device.batches`, `to_device.bytes`)."""
+    with span("dense.to_device"):
+        host = [batch[k][rows] for k in ("image", "boxes", "labels",
+                                         "box_mask")]
+        count("to_device.batches")
+        count("to_device.bytes", sum(a.nbytes for a in host))
+        images, boxes, labels, mask = (torch.from_numpy(a).to(device)
+                                       for a in host)
+        return images, boxes, labels.long(), mask
 
 
 def _seeded_model(model: torch.nn.Module, cfg: DenseConfig, trunk: str,
@@ -368,8 +384,11 @@ def _train_loop(cfg: DenseConfig, *, model, optimizer, generator, loader,
     `loss_key` every `log_every` steps, `evaluate()` every `eval_every`
     steps and at the end, keeping the checkpoint of the best val mAP,
     and a preemption checkpoint `<save_path>.preempt` on SIGTERM/SIGINT;
-    the losses, the step's ms and the val scores as TensorBoard scalars
-    with `tensorboard_dir`, the loop in anomaly mode with `debug_nans`.
+    the losses, the step's ms (to the device's end of the step) and the
+    val scores as TensorBoard scalars with `tensorboard_dir`, the loop in
+    anomaly mode with `debug_nans`, and with `profile_dir` rank 0's
+    profiler trace of the steady steps `PROFILED_STEPS` (`<profile_dir>/
+    trace.json`, the program's spans beside its operators and kernels).
     Over a `mesh` of several ranks, rank 0 alone evaluates and writes
     while the others wait at a barrier, and a signal seen by any rank
     stops every rank at the same step. Returns the summary's common
@@ -393,13 +412,15 @@ def _train_loop(cfg: DenseConfig, *, model, optimizer, generator, loader,
     steps_per_epoch = max(len(loader.train_ix) // cfg.batch_size, 1)
     it = start_iter
     last: Dict[str, float] = {}
+    timer = profiling.StepTimer(sync=next(model.parameters()).device)
 
     def state():
         cursor = (it % steps_per_epoch) * cfg.batch_size
         return ckptlib.train_state(model, optimizer, it, generator, cursor)
     with ckptlib.SignalCheckpointer() as sig, \
             closing(TBWriter(cfg.tensorboard_dir)) as tb, \
-            profiling.enable_nan_debugging(cfg.debug_nans):
+            profiling.enable_nan_debugging(cfg.debug_nans), \
+            ExitStack() as profiled:
         for batch in _endless_batches(loader, cfg, start_images):
             if it >= max_iter:
                 break
@@ -409,10 +430,15 @@ def _train_loop(cfg: DenseConfig, *, model, optimizer, generator, loader,
                 if verbose and writer:
                     print(f"preemption checkpoint written at iter {it}")
                 break
-            t0 = time.perf_counter()
-            last = step(batch, it)
-            step_ms = (time.perf_counter() - t0) * 1000.0
+            done = it - start_iter
+            if cfg.profile_dir and writer and done == PROFILED_STEPS[0]:
+                profiled.enter_context(profiling.trace(cfg.profile_dir))
+            with timer:
+                last = step(batch, it)
+            step_ms = timer.last_ms
             it += 1
+            if done + 1 == PROFILED_STEPS[1]:
+                profiled.close()
             if it % log_every == 0:
                 loss_hist.append(it, last[loss_key], step_ms)
                 loss_hist.flush()

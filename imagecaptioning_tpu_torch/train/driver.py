@@ -49,7 +49,6 @@ the same checkpoint, the generator's state with it.
 from __future__ import annotations
 
 import os
-import time
 from contextlib import closing
 from functools import partial
 from typing import Dict, Optional
@@ -239,6 +238,7 @@ def train(cfg: CaptionConfig, *, device=None,
 
     it = start_iter
     last_loss = float("nan")
+    timer = profiling.StepTimer(sync=dev)
     with ckptlib.SignalCheckpointer() as sig, \
             closing(TBWriter(cfg.tensorboard_dir)) as tb, \
             profiling.enable_nan_debugging(cfg.debug_nans):
@@ -252,10 +252,10 @@ def train(cfg: CaptionConfig, *, device=None,
                     print(f"preemption checkpoint written at iter {it}")
                 break
             model.freeze_encoder = encoder_frozen(cfg, it, frozen_until)
-            t0 = time.perf_counter()
-            metrics = run_step(item)
-            last_loss = float(metrics["loss"])       # the step's end
-            step_ms = (time.perf_counter() - t0) * 1000.0
+            with timer:
+                metrics = run_step(item)
+                last_loss = float(metrics["loss"])
+            step_ms = timer.last_ms
             it += 1
             if it % pad == 0:
                 loss_hist.append(it, last_loss, step_ms)

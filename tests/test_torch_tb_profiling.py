@@ -6,8 +6,10 @@ the trainers, on the CPU at tiny widths.
   (port of `tests/test_tb.py`); the AlexCap and GT drivers write JAX's
   scalars (`train/…`, `val/…`) when `tensorboard_dir` is set, and an
   inactive writer, with no event file, when it is unset;
-- `StepTimer.summary` equal to JAX's on the same times; `trace` writes a
-  trace file; `enable_nan_debugging` as a call and as a context;
+- `StepTimer.summary` equal to JAX's on the same times, and its `sync`
+  waited on before the clock is read; `trace` writes a trace file, and
+  the dense loop writes one of its steady steps with `profile_dir`;
+  `enable_nan_debugging` as a call and as a context;
 - `debug_nans` in each driver (AlexCap, GT, RPN): a NaN planted in the
   caption head's output bias stops the first step at its backward,
   before any update, the weights unchanged; without it the same run
@@ -16,6 +18,7 @@ the trainers, on the CPU at tiny widths.
 
 import glob
 import os
+import time
 
 import pytest
 import torch
@@ -86,14 +89,14 @@ def _gt_cfg(tmp_path, **kw):
         result_file=str(tmp_path / "r.json"), **kw)
 
 
-def _train(kind, cfg, **kw):
+def _train(kind, cfg, max_iter_override=2, **kw):
     if kind == "alexcap":
         return driver.train(cfg, device="cpu", max_iter_override=2,
                             eval_every_override=2, synthetic_images=8,
                             verbose=False, **kw)
     run = dense_driver.train_gt if kind == "gt" else dense_driver.train_rpn
-    return run(cfg, device="cpu", max_iter_override=2, eval_every_override=2,
-               verbose=False, **kw)
+    return run(cfg, device="cpu", max_iter_override=max_iter_override,
+               eval_every_override=max_iter_override, verbose=False, **kw)
 
 
 @pytest.mark.parametrize("kind", ["alexcap", "gt"])
@@ -137,6 +140,34 @@ def test_step_timer_summary_matches_jax():
     with timer:
         pass
     assert len(timer.times_ms) == 1 and timer.last_ms >= 0.0
+
+
+def test_step_timer_waits_on_sync_before_reading_the_clock():
+    waited = []
+
+    def sync():
+        time.sleep(0.02)
+        waited.append(time.perf_counter())
+    timer = profiling.StepTimer(sync=sync)
+    with timer:
+        pass
+    assert len(waited) == 1 and timer.last_ms >= 20.0
+    # a device: the card's synchronize, nothing to wait for on the CPU
+    for dev in ("cpu", torch.device("cpu")):
+        with profiling.StepTimer(sync=dev) as t:
+            pass
+        assert len(t.times_ms) == 1
+
+
+def test_profile_dir_traces_the_steady_steps(tmp_path):
+    """`profile_dir` traces the loop's steps 3 to 12: of a 4-step run, the
+    fourth step alone, its spans beside its operators."""
+    logdir = tmp_path / "prof"
+    _train("gt", _gt_cfg(tmp_path, profile_dir=str(logdir)),
+           max_iter_override=4)
+    text = (logdir / "trace.json").read_text()
+    assert text.count('"name": "dense.step"') == 1
+    assert '"name": "gt.trunk"' in text and "aten::" in text
 
 
 def test_trace_writes_a_trace_file(tmp_path):
