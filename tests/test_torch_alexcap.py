@@ -46,6 +46,7 @@ from imagecaptioning_tpu_torch.models.heads import LanguageHead
 from imagecaptioning_tpu_torch.ops import losses
 from imagecaptioning_tpu_torch.utils.weights import (
     lstm_captioner_state_dict_from_jax, resnet_state_dict)
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 STAGES = (1, 1, 1, 1)
 KW = dict(vocab_size=20, embedding_size=24, rnn_size=16)

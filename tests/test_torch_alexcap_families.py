@@ -61,6 +61,7 @@ from imagecaptioning_tpu_torch.ops import losses
 from imagecaptioning_tpu_torch.utils.weights import (
     captioner_state_dict_from_jax, load_alexcap_checkpoint, seeded_init_,
     vit_state_dict)
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 VOCAB, SEQ, STEPS = 20, 6, 7
 STAGES = (1, 1, 1, 1)

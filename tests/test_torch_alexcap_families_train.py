@@ -75,6 +75,7 @@ from imagecaptioning_tpu_torch.utils.weights import (
     captioner_state_dict_from_jax, captioner_train_state_from_jax)
 from test_torch_alexcap_families import (cfg_for, images_for, jax_model,
                                          labels, seeded_pair)
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 def _np(tree):

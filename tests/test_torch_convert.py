@@ -39,6 +39,7 @@ from imagecaptioning_tpu_torch.utils import torch_port as tp
 from imagecaptioning_tpu_torch.utils import weights
 from imagecaptioning_tpu_torch.utils.pretrained import (apply_encoder_init,
                                                         flatten_tree)
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 CUT = dict(backbone_stages=(1, 1, 1, 1), compute_dtype="float32",
            use_dropout=False)

@@ -15,6 +15,7 @@
 """
 
 import json
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +41,7 @@ from imagecaptioning_tpu_torch.models.densecap import (DenseCapRPN,
                                                        GTDenseCaptioner)
 from imagecaptioning_tpu_torch.train import dense_driver
 from imagecaptioning_tpu_torch.utils import pretrained, visualize, weights
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 def _np(tree):
@@ -65,10 +67,10 @@ def gt_pair():
     jm = JaxGT(use_lstm=True, **kw)
     b0 = next(jloader.padded_batches(0, 2, 4))
     k = jax.random.PRNGKey(0)
-    v = jm.init({"params": k, "sampling": k},
-                jax_vg_loader.normalize_images(b0["image"]),
-                jnp.asarray(b0["boxes"]), jnp.asarray(b0["labels"]),
-                train=False)
+    v = jax.jit(partial(jm.init, train=False))(
+        {"params": k, "sampling": k},
+        jax_vg_loader.normalize_images(b0["image"]),
+        jnp.asarray(b0["boxes"]), jnp.asarray(b0["labels"]))
     params = _np(v["params"])
     pm = GTDenseCaptioner(**kw).eval()
     pm.load_state_dict(weights.gt_state_dict_from_jax(params))
@@ -106,10 +108,10 @@ def test_eval_split_rpn_matches_jax():
     jm = JaxRPN(**kw)
     b0 = next(jloader.padded_batches(0, 1, 4))
     k = jax.random.PRNGKey(0)
-    v = jm.init({"params": k},
-                jax_vg_loader.normalize_images(b0["image"]),
-                jnp.asarray(b0["boxes"]), jnp.asarray(b0["box_mask"]),
-                jnp.asarray(b0["labels"]), rng=k, train=False)
+    v = jax.jit(partial(jm.init, train=False))(
+        {"params": k}, jax_vg_loader.normalize_images(b0["image"]),
+        jnp.asarray(b0["boxes"]), jnp.asarray(b0["box_mask"]),
+        jnp.asarray(b0["labels"]), rng=k)
     params = _np(v["params"])
     rng = np.random.RandomState(1)
     for name, scale in (("rpn_trans", 0.05), ("box_reg", 0.01)):

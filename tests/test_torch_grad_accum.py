@@ -43,6 +43,7 @@ from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
 from imagecaptioning_tpu_torch.utils.weights import (
     gt_state_dict_from_jax, lstm_captioner_state_dict_from_jax,
     rpn_state_dict_from_jax, seeded_init_)
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 K = 2                  # micro-steps per applied update
 MICRO = 4

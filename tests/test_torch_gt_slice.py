@@ -19,6 +19,7 @@ that the port imports nothing of JAX.
 import ast
 import json
 import os
+from functools import partial
 from pathlib import Path
 
 import jax
@@ -37,6 +38,7 @@ from imagecaptioning_tpu_torch.models import api
 from imagecaptioning_tpu_torch.models.densecap import GTDenseCaptioner
 from imagecaptioning_tpu_torch.utils.platform import resolve_device
 from imagecaptioning_tpu_torch.utils.weights import gt_state_dict_from_jax
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 REPO = Path(__file__).resolve().parents[1]
 KW = dict(vocab_size=24, seq_length=5, embedding_size=16, rnn_size=16,
@@ -57,8 +59,9 @@ def pair():
     jm = JaxGT(use_lstm=True, **KW)
     images = np.array(jax_normalize(u8))
     k = jax.random.PRNGKey(0)
-    v = jm.init({"params": k, "sampling": k}, jnp.asarray(images),
-                jnp.asarray(boxes), jnp.asarray(labels), train=False)
+    v = jax.jit(partial(jm.init, train=False))(
+        {"params": k, "sampling": k}, jnp.asarray(images),
+        jnp.asarray(boxes), jnp.asarray(labels))
     pm = GTDenseCaptioner(**KW).eval()
     pm.load_state_dict(gt_state_dict_from_jax(
         jax.tree.map(np.asarray, v["params"])))

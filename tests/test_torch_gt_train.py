@@ -28,6 +28,7 @@ import os
 import shutil
 import signal
 import time
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -58,6 +59,7 @@ from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
 from imagecaptioning_tpu_torch.utils.weights import (gt_state_dict_from_jax,
                                                      gt_train_state_from_jax,
                                                      seeded_init_)
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 KW = dict(vocab_size=24, seq_length=5, embedding_size=16, rnn_size=16,
           vgg_stages=2)
@@ -90,8 +92,9 @@ def pair():
     x, boxes, labels, mask = _inputs()
     jm = JaxGT(use_lstm=True, **KW)
     k = jax.random.PRNGKey(0)
-    v = jm.init({"params": k, "sampling": k}, jnp.asarray(x),
-                jnp.asarray(boxes), jnp.asarray(labels), train=False)
+    v = jax.jit(partial(jm.init, train=False))(
+        {"params": k, "sampling": k}, jnp.asarray(x), jnp.asarray(boxes),
+        jnp.asarray(labels))
     params = _np(v["params"])
     pm = GTDenseCaptioner(**KW)
     pm.load_state_dict(gt_state_dict_from_jax(params))
@@ -142,7 +145,7 @@ def test_gt_loss_and_every_gradient_match_jax(pair):
         out = jm.apply({"params": p}, jnp.asarray(x), jnp.asarray(boxes),
                        jnp.asarray(labels), train=False)
         return jm.loss(out, jnp.asarray(labels), jnp.asarray(mask))
-    want_loss, want_grads = jax.value_and_grad(loss_fn)(
+    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(
         jax.tree.map(jnp.asarray, params))
     want = gt_state_dict_from_jax(_np(want_grads))
 

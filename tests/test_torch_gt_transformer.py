@@ -55,6 +55,7 @@ from imagecaptioning_tpu_torch.utils.weights import (gt_state_dict_from_jax,
                                                      gt_train_state_from_jax,
                                                      load_gt_checkpoint,
                                                      vgg_classifier_state_dict)
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 KW = dict(vocab_size=24, seq_length=5, vgg_stages=2, embed_size=32,
           num_layers=2, heads=4)

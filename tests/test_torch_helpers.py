@@ -16,6 +16,7 @@ from imagecaptioning_tpu.ops import losses as jax_losses
 from imagecaptioning_tpu.utils import io as jax_io
 from imagecaptioning_tpu_torch.ops import boxes, losses
 from imagecaptioning_tpu_torch.utils import io
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 

@@ -22,6 +22,7 @@ from pathlib import Path
 from typing import Dict, List, Optional, Set
 
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 REPO = Path(__file__).resolve().parents[1]
 JAX = REPO / "imagecaptioning_tpu"

@@ -25,6 +25,7 @@ from imagecaptioning_tpu_torch.data.loader import AlexDataLoader
 from imagecaptioning_tpu_torch.data.tokenizer import Vocab
 from imagecaptioning_tpu_torch.data.vg_loader import VGDataLoader
 from imagecaptioning_tpu_torch.train import dense_driver
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 def _assert_same_arrays(got, want):

@@ -29,6 +29,7 @@ from imagecaptioning_tpu_torch.models.backbones import vgg as port_vgg
 from imagecaptioning_tpu_torch.models.heads import LanguageHead
 from imagecaptioning_tpu_torch.ops.rnn import LSTM
 from imagecaptioning_tpu_torch.utils import weights
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 def _strip(sd, prefix):

@@ -22,6 +22,7 @@ from imagecaptioning_tpu_torch.data import synthetic
 from imagecaptioning_tpu_torch.data.loader import AlexDataLoader
 from imagecaptioning_tpu_torch.data.vg_loader import VGDataLoader
 from imagecaptioning_tpu_torch.native import build
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -76,6 +76,7 @@ from imagecaptioning_tpu_torch.utils.weights import (
     rpn_state_dict_from_jax)
 from test_torch_alexcap_families import jax_model, reference_layout
 from test_torch_rpn import jax_keys
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 2

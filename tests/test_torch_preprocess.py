@@ -28,6 +28,7 @@ from imagecaptioning_tpu_torch.data import preprocess_face2text as f2t
 from imagecaptioning_tpu_torch.data import preprocess_vg as vg
 from imagecaptioning_tpu_torch.data.loader import AlexDataLoader
 from imagecaptioning_tpu_torch.data.vg_loader import VGDataLoader
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 def _jpg(path, h, w, seed, gray=False):

@@ -58,6 +58,7 @@ from imagecaptioning_tpu_torch.ops import tokens
 from imagecaptioning_tpu_torch.train import dense_driver
 from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
 from imagecaptioning_tpu_torch.utils import pretrained, refload, weights
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 # ------------------------------------------------------------ the loader
 

@@ -19,6 +19,7 @@ import torch
 
 from imagecaptioning_tpu.ops import roi_align as jax_roi
 from imagecaptioning_tpu_torch.ops import roi_align as port_roi
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2 ** -7, atol=1e-5)

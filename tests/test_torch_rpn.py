@@ -24,6 +24,8 @@ Same numpy inputs and the same (converted) weights on both sides:
   `forward_test` within 1e-4, keep identical; a partial file raises.
 """
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -46,6 +48,7 @@ from imagecaptioning_tpu_torch.ops import box_sampler, boxes, losses, nms
 from imagecaptioning_tpu_torch.utils.weights import (gt_state_dict_from_jax,
                                                      rpn_state_dict_from_jax,
                                                      seeded_init_)
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 KW = dict(vocab_size=20, seq_length=5, num_pos=8, num_neg=8,
           test_proposals=20, embedding_size=16, rnn_size=16, vgg_stages=2,
@@ -318,8 +321,8 @@ def rpn_pair():
     for cap in (True, False):
         jm = JaxRPN(with_captioning=cap, **KW)
         k = jax.random.PRNGKey(0)
-        v = jm.init({"params": k}, *map(jnp.asarray, (x, gt, gm, labels)),
-                    rng=k, train=False)
+        v = jax.jit(partial(jm.init, train=False))(
+            {"params": k}, *map(jnp.asarray, (x, gt, gm, labels)), rng=k)
         params = _np(v["params"])
         for name, scale in (("rpn_trans", 0.05), ("box_reg", 0.01)):
             kern = params[name]["kernel"]
@@ -345,7 +348,7 @@ def test_rpn_losses_and_every_gradient_match_jax(rpn_pair, with_captioning):
         d = jm.apply({"params": p}, *map(jnp.asarray, (x, gt, gm, labels)),
                      rng=rng, train=False)
         return d["total"], d
-    (_, want), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+    (_, want), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         jax.tree.map(jnp.asarray, params))
     want_grads = rpn_state_dict_from_jax(_np(grads))
 
@@ -437,8 +440,8 @@ def transformer_pair():
     bx = np.stack([_boxes(rng, 3, 8, 24, 6, 20) for _ in range(2)])
     labels = rng.randint(1, 25, (2, 3, 5)).astype(np.int32)
     jm = JaxGT(use_lstm=False, **kw)
-    v = jm.init({"params": jax.random.PRNGKey(0)}, jnp.asarray(x),
-                jnp.asarray(bx), jnp.asarray(labels))
+    v = jax.jit(jm.init)({"params": jax.random.PRNGKey(0)}, jnp.asarray(x),
+                         jnp.asarray(bx), jnp.asarray(labels))
     params = _np(v["params"])
     pm = GTDenseCaptioner(use_lstm=False, **kw).eval()
     pm.load_state_dict(gt_state_dict_from_jax(params))

@@ -20,6 +20,7 @@ JAX package, at a tiny size (2 VGG stages, 32–64² images, narrow heads).
 import json
 import os
 import shutil
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +46,7 @@ from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
 from imagecaptioning_tpu_torch.utils.weights import (rpn_state_dict_from_jax,
                                                      rpn_train_state_from_jax,
                                                      seeded_init_)
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 KW = dict(num_pos=8, num_neg=8, test_proposals=20, embedding_size=16,
           rnn_size=16, vgg_stages=2, anchor_sizes=(8.0, 16.0, 32.0),
@@ -229,10 +231,10 @@ def eval_pair():
     jm = JaxRPN(**kw)
     b0 = next(jloader.padded_batches(0, 1, 4))
     k = jax.random.PRNGKey(0)
-    v = jm.init({"params": k},
-                jax_vg_loader.normalize_images(b0["image"]),
-                jnp.asarray(b0["boxes"]), jnp.asarray(b0["box_mask"]),
-                jnp.asarray(b0["labels"]), rng=k, train=False)
+    v = jax.jit(partial(jm.init, train=False))(
+        {"params": k}, jax_vg_loader.normalize_images(b0["image"]),
+        jnp.asarray(b0["boxes"]), jnp.asarray(b0["box_mask"]),
+        jnp.asarray(b0["labels"]), rng=k)
     params = _np(v["params"])
     rng = np.random.RandomState(1)
     for name, scale in (("rpn_trans", 0.05), ("box_reg", 0.01)):

@@ -20,6 +20,7 @@ from nltk.translate import meteor_score as nltk_meteor  # noqa: E402
 from imagecaptioning_tpu_torch.eval import bleu, meteor  # noqa: E402
 from imagecaptioning_tpu_torch.eval import dense_eval, scorer  # noqa: E402
 from imagecaptioning_tpu_torch.eval.porter import PorterStemmer  # noqa: E402
+import torch_threads  # noqa: E402,F401  (one torch thread a test process)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -36,6 +36,7 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 from portbench import harness  # noqa: E402
 from portbench import trace as bench_trace  # noqa: E402
+import torch_threads  # noqa: E402,F401  (one torch thread a test process)
 
 # the spans on each cell's path, and the readers that read host spans
 # (a positive number on the CPU) or device time under one (None there)

@@ -29,6 +29,7 @@ from imagecaptioning_tpu_torch.train import dense_driver, driver
 from imagecaptioning_tpu_torch.utils import checkpoint as ckptlib
 from imagecaptioning_tpu_torch.utils import profiling
 from imagecaptioning_tpu_torch.utils.tb import TBWriter
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 @pytest.fixture(autouse=True)

@@ -71,6 +71,7 @@ from imagecaptioning_tpu_torch.utils.weights import (
 from test_torch_alexcap_families import jax_model, reference_layout
 from test_torch_parallel import (_close, _np, _port_names, _tensor_close,
                                  _tensors, _wait, jax_sharded_steps)
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD, MESH = 4, ((2, 2), ("data", "model"))
