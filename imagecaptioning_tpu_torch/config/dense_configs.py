@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, replace
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass
@@ -170,6 +170,59 @@ def get_densecap_config() -> DenseConfig:
         loss_file="runs/loss_logs/loss_history_densecap.json",
         result_file="runs/logs/results_history_densecap.json",
     )
+
+
+@dataclass
+class RegionLMConfig(DenseConfig):
+    """The GT-box captioner with a decoder-only language model as its
+    caption head (`models/densecap.GTRegionLMCaptioner`): the language
+    model's keys as its published config names them, and the fixed prompt
+    that follows each region token. Defaults: Kimi-VL-A3B-Instruct's
+    language model (huggingface.co/moonshotai/Kimi-VL-A3B-Instruct,
+    config.json's `text_config`), the one configuration it is built for;
+    `models/moe_lm.LMSpec.from_config` refuses values it does not compute.
+    """
+
+    vocab_size: int = 163840
+    max_position_embeddings: int = 131072
+    hidden_size: int = 2048
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    num_key_value_heads: int = 16
+    n_shared_experts: int = 2
+    n_routed_experts: int = 64
+    ep_size: int = 1
+    routed_scaling_factor: float = 2.446
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = None
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    qk_nope_head_dim: int = 128
+    topk_method: str = "noaux_tc"
+    n_group: int = 1
+    topk_group: int = 1
+    num_experts_per_tok: int = 6
+    moe_layer_freq: int = 1
+    first_k_dense_replace: int = 1
+    norm_topk_prob: bool = True
+    scoring_func: str = "sigmoid"
+    seq_aux: bool = True
+    hidden_act: str = "silu"
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 800000.0
+    rope_scaling: Optional[Dict[str, Any]] = None
+    attention_bias: bool = False
+    tie_word_embeddings: bool = False
+    prompt_length: int = 16
+
+
+def get_gt_kimivl_config() -> RegionLMConfig:
+    """The GT captioner with Kimi-VL-A3B's language model, served in bf16
+    (trunk, classifier, projectors and language model)."""
+    return RegionLMConfig(model_type="gt", use_lstm=False,
+                          param_dtype="bfloat16")
 
 
 def name_gt_model(cfg: DenseConfig):

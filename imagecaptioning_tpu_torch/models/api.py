@@ -145,15 +145,19 @@ def make_beam_fn(model, max_steps: int, beam_size: int,
 
 def make_region_greedy_fn(model, max_steps: int) -> Callable:
     """(images, boxes) → tokens (N*R, max_steps): greedy decode over every
-    (padded) region of the batch."""
+    (padded) region of the batch. A head whose carry holds the prefill's
+    `first_logits` (the region language model) takes its first token from
+    them, and not from a start token."""
 
     @torch.inference_mode()
     def run(images, boxes):
         with span("gt.greedy"):
             flat_enc = model.encode_flat(images, boxes)
             carry, step = model.init_decode(flat_enc, max_steps=max_steps)
-            return decoding.greedy_decode(step, carry, flat_enc.shape[0],
-                                          model.spec.start, max_steps)
+            return decoding.greedy_decode(
+                step, carry, boxes.shape[0] * boxes.shape[1],
+                model.spec.start, max_steps,
+                first_logits=getattr(carry, "first_logits", None))
     return run
 
 

@@ -68,19 +68,27 @@ def expand_for_beams(carry: Any, beam_size: int) -> Any:
 
 def greedy_decode(step_fn: DecodeStep, carry: Any, batch: int,
                   start_token: int, max_steps: int,
-                  collect_alphas: bool = False):
+                  collect_alphas: bool = False,
+                  first_logits: Optional[torch.Tensor] = None):
     """Greedy argmax decode for a fixed step count → tokens (B, max_steps),
     or (tokens, alphas (B, max_steps, P)) with `collect_alphas`. `argmax`
-    takes the first maximum, as `jnp.argmax` does. Counts its calls and
-    steps (`decode.calls`, `decode.steps`)."""
+    takes the first maximum, as `jnp.argmax` does. Given a prefill's
+    `first_logits` (B, V), the first token is their argmax and the steps
+    t = 1 .. max_steps - 1 feed each token on; `start_token` is then not
+    used (and alphas are not collected). Counts its calls and the steps it
+    runs (`decode.calls`, `decode.steps`)."""
+    first = 0 if first_logits is None else 1
     count("decode.calls")
-    count("decode.steps", max_steps)
+    count("decode.steps", max_steps - first)
     with span("decode.greedy"):
-        device = _first_leaf(carry).device
-        tok = torch.full((batch, 1), start_token, dtype=torch.long,
-                         device=device)
         out, alphas = [], []
-        for t in range(max_steps):
+        if first:
+            tok = first_logits.argmax(dim=-1, keepdim=True)
+            out.append(tok)
+        else:
+            tok = torch.full((batch, 1), start_token, dtype=torch.long,
+                             device=_first_leaf(carry).device)
+        for t in range(first, max_steps):
             carry, logits, *step_alphas = step_fn(carry, tok, t)
             tok = logits.argmax(dim=-1, keepdim=True)
             out.append(tok)

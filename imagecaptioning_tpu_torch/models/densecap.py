@@ -45,7 +45,7 @@ from torch import nn
 
 from imagecaptioning_tpu_torch.models.backbones.vgg import (VGGClassifierHead,
                                                             VGGFeatures)
-from imagecaptioning_tpu_torch.models import decoding
+from imagecaptioning_tpu_torch.models import decoding, moe_lm
 from imagecaptioning_tpu_torch.models.heads import (LanguageHead,
                                                     TransformerHead)
 from imagecaptioning_tpu_torch.ops import boxes as boxlib
@@ -55,7 +55,7 @@ from imagecaptioning_tpu_torch.ops.box_sampler import (SampleResult,
 from imagecaptioning_tpu_torch.ops.nms import nms
 from imagecaptioning_tpu_torch.ops.roi_align import roi_align_batch_chw
 from imagecaptioning_tpu_torch.parallel import mesh
-from imagecaptioning_tpu_torch.utils.profiling import span
+from imagecaptioning_tpu_torch.utils.profiling import count, span
 
 
 class GTDenseOutput(NamedTuple):
@@ -80,6 +80,18 @@ class GTDenseCaptioner(nn.Module):
         self.use_lstm = use_lstm
         self.vocab_size = vocab_size
         self.seq_length = seq_length
+        self._init_encoder(roi_size, vgg_stages, compute_dtype, param_dtype)
+        if use_lstm:
+            self.llm = LanguageHead(vocab_size, embedding_size, rnn_size,
+                                    num_lstm_layers, dropout)
+        else:
+            self.llm = TransformerHead(vocab_size, seq_length, embed_size,
+                                       num_layers, heads, dropout)
+
+    def _init_encoder(self, roi_size: Tuple[int, int], vgg_stages: int,
+                      compute_dtype: torch.dtype,
+                      param_dtype: Optional[torch.dtype]) -> None:
+        """The VGG16 trunk (with its last pool) and fc6/fc7."""
         self.roi_size = tuple(roi_size)
         self.compute_dtype = compute_dtype
         self.features = VGGFeatures(include_final_pool=True,
@@ -90,12 +102,6 @@ class GTDenseCaptioner(nn.Module):
                                             compute_dtype=compute_dtype)
         self.features.to(param_dtype or compute_dtype)
         self.classifier.to(param_dtype or compute_dtype)
-        if use_lstm:
-            self.llm = LanguageHead(vocab_size, embedding_size, rnn_size,
-                                    num_lstm_layers, dropout)
-        else:
-            self.llm = TransformerHead(vocab_size, seq_length, embed_size,
-                                       num_layers, heads, dropout)
 
     @property
     def spec(self) -> tokens.TokenSpec:
@@ -109,6 +115,15 @@ class GTDenseCaptioner(nn.Module):
                        ) -> torch.Tensor:
         """images (N, H, W, 3) normalized, gt_boxes (N, R, 4) xcycwh in
         image coords → region codes (N, R, 4096) fp32."""
+        return self.encode_map_and_regions(images, gt_boxes, train,
+                                           generator)[1]
+
+    def encode_map_and_regions(self, images: torch.Tensor,
+                               gt_boxes: torch.Tensor, train: bool = False,
+                               generator: Optional[torch.Generator] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`encode_regions`, with the trunk's map (N, Hf, Wf, C) (an NHWC
+        view in the compute dtype) before the codes."""
         with span("gt.trunk"):
             feats = self.features(images)   # (N, Hf, Wf, C) view
         ih, iw = images.shape[1], images.shape[2]
@@ -120,8 +135,8 @@ class GTDenseCaptioner(nn.Module):
                                        (float(ih), float(iw)), self.roi_size,
                                        out_dtype=self.compute_dtype)
         with span("gt.classifier"):
-            return self.classifier(flat, train=train,
-                                   generator=generator).float()
+            return feats, self.classifier(flat, train=train,
+                                          generator=generator).float()
 
     def forward(self, images: torch.Tensor, gt_boxes: torch.Tensor,
                 gt_labels: torch.Tensor, train: bool = False,
@@ -227,6 +242,114 @@ class GTDenseCaptioner(nn.Module):
         def step(cache, toks, t):
             return cache, decoder_step(cache, toks, t)
         return cache, step
+
+
+class Projector(nn.Module):
+    """LayerNorm over `norm_dim` → Linear(in_dim → hidden) → GELU →
+    Linear(hidden → out): Kimi-VL's multimodal projector, whose norm acts
+    on each pixel before the 2 × 2 merge that makes `in_dim`."""
+
+    def __init__(self, norm_dim: int, in_dim: int, hidden: int, out: int,
+                 dtype=None):
+        super().__init__()
+        self.pre_norm = nn.LayerNorm(norm_dim, eps=1e-5, dtype=dtype)
+        self.linear_1 = nn.Linear(in_dim, hidden, dtype=dtype)
+        self.linear_2 = nn.Linear(hidden, out, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (..., in_dim / norm_dim, norm_dim) → (..., out)."""
+        x = self.pre_norm(x).flatten(-2)
+        return self.linear_2(F.gelu(self.linear_1(x)))
+
+
+class RegionInputs(NamedTuple):
+    image: torch.Tensor         # (N, P, D) image tokens
+    region: torch.Tensor        # (N*R, D) region tokens, grouped by image
+
+
+class GTRegionLMCaptioner(GTDenseCaptioner):
+    """The ground-truth-box captioner with a decoder-only language model
+    (`models/moe_lm.py`) in place of the LSTM: each region is captioned
+    from its image's tokens, its own region token and a fixed prompt, as a
+    region-level vision-language model does (GPT4RoI, arXiv:2307.03601).
+
+    The encoder is `GTDenseCaptioner`'s (`encode_map_and_regions`). Image
+    tokens: the trunk's map, LayerNorm over its channels, each 2 × 2
+    block of pixels merged into one token (22 × 22 → 121 at 720²), and
+    Kimi-VL's projector (Linear 4C → 4C, GELU, Linear → hidden). Region
+    tokens: each region's fc7 code through LayerNorm, Linear(4096 →
+    hidden), GELU, Linear(hidden → hidden). Parameters `image_proj.*`,
+    `region_proj.*` and `lm.*` (the published names under `lm.`, the
+    routed experts stacked), in `param_dtype` but for the router's
+    correction bias (fp32).
+
+    Serving only: `encode_flat` and `init_decode` drive
+    `api.make_region_greedy_fn`. The first token of a region comes from
+    the prefill's logits; the language model has no start or end token,
+    and a decode runs its fixed number of steps."""
+
+    def __init__(self, lm: moe_lm.LMSpec, roi_size: Tuple[int, int] = (7, 7),
+                 vgg_stages: int = 5,
+                 compute_dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
+        nn.Module.__init__(self)
+        self.use_lstm = False
+        self.vocab_size = lm.vocab_size
+        self.seq_length = None
+        self._init_encoder(roi_size, vgg_stages, compute_dtype, param_dtype)
+        c, d = self.features.out_channels, lm.hidden_size
+        fc = self.classifier[3].out_features
+        dtype = param_dtype or compute_dtype
+        self.image_proj = Projector(c, 4 * c, 4 * c, d, dtype)
+        self.region_proj = Projector(fc, fc, d, d, dtype)
+        self.lm = moe_lm.MoELM(lm, dtype)
+
+    @property
+    def spec(self) -> tokens.TokenSpec:
+        v = self.vocab_size
+        return tokens.TokenSpec(v, -1, -1, -1, v)
+
+    def forward(self, *args, **kwargs):
+        raise NotImplementedError("the region language model serves only")
+
+    def encode_flat(self, images: torch.Tensor,
+                    gt_boxes: torch.Tensor) -> RegionInputs:
+        """The image tokens (N, P, D) and the region tokens (N*R, D)."""
+        with span("gt.encode"):
+            feats, codes = self.encode_map_and_regions(images, gt_boxes)
+        with span("gt.project"):
+            n, h, w, c = feats.shape
+            blocks = feats.reshape(n, h // 2, 2, w // 2, 2, c).permute(
+                0, 1, 3, 2, 4, 5).reshape(n, (h // 2) * (w // 2), 4, c)
+            image = self.image_proj(blocks)
+            region = self.region_proj(
+                codes.to(self.compute_dtype)[..., None, :])
+            return RegionInputs(image, region.reshape(-1, region.shape[-1]))
+
+    def init_decode(self, flat_enc: RegionInputs, beam_size: int = 1,
+                    max_steps: Optional[int] = None
+                    ) -> Tuple[moe_lm.RegionLMCarry, Callable]:
+        """Prefill every image's tokens once, then every region's token and
+        prompt against its image's prefix → (carry, step) for
+        `decoding.greedy_decode`: the carry holds the prefill's logits of
+        each region's first token, and `step(carry, tokens (B, 1), t)`,
+        for t ≥ 1, decodes the t-th token's successor."""
+        if beam_size != 1:
+            raise NotImplementedError("the region language model decodes "
+                                      "greedily")
+        n, p = flat_enc.image.shape[:2]
+        b = flat_enc.region.shape[0]
+        with span("lm.prefill"):
+            count("lm.prefill_tokens",
+                  n * p + b * (1 + self.lm.s.prompt_length))
+            carry = self.lm.prefill(flat_enc.image, flat_enc.region,
+                                    max_steps)
+        start = 1 + self.lm.s.prompt_length
+
+        def step(carry, toks, t):
+            count("lm.decode_tokens", toks.shape[0])
+            return carry, self.lm.decode_step(carry, toks, start + t - 1)
+        return carry, step
 
 
 # ----------------------------------------------------------------- RPN

@@ -62,13 +62,16 @@ import numpy as np
 import torch
 
 from imagecaptioning_tpu_torch.config.dense_configs import (DenseConfig,
+                                                            RegionLMConfig,
                                                             name_gt_model)
 from imagecaptioning_tpu_torch.data import synthetic
 from imagecaptioning_tpu_torch.data.vg_loader import (VGDataLoader,
                                                       normalize_images)
 from imagecaptioning_tpu_torch.eval import dense_eval
+from imagecaptioning_tpu_torch.models import moe_lm
 from imagecaptioning_tpu_torch.models.densecap import (DenseCapRPN,
-                                                       GTDenseCaptioner)
+                                                       GTDenseCaptioner,
+                                                       GTRegionLMCaptioner)
 from imagecaptioning_tpu_torch.ops import boxes as boxlib
 from imagecaptioning_tpu_torch.ops.box_sampler import candidate_masks
 from imagecaptioning_tpu_torch.parallel import mesh as meshlib
@@ -198,7 +201,15 @@ def build_gt_model(cfg: DenseConfig, vocab_size: int, seq_length: int,
     """The captioner for `cfg` on `device`: compute in
     `cfg.compute_dtype`, parameters in `cfg.param_dtype`. The transformer
     head (`use_lstm` False) takes the model's default widths, as the JAX
-    driver does: `num_layers` sizes the LSTM only."""
+    driver does: `num_layers` sizes the LSTM only. A `RegionLMConfig`
+    builds the region language model instead, its widths and vocabulary
+    the config's (`vocab_size` and `seq_length` unused)."""
+    if isinstance(cfg, RegionLMConfig):
+        with torch.device(device):
+            return GTRegionLMCaptioner(
+                moe_lm.LMSpec.from_config(cfg), vgg_stages=cfg.vgg_stages,
+                compute_dtype=DTYPES[cfg.compute_dtype],
+                param_dtype=DTYPES[cfg.param_dtype])
     with torch.device(device):
         return GTDenseCaptioner(
             vocab_size=vocab_size, seq_length=seq_length,

@@ -47,6 +47,12 @@ CELLS = {
                   "rpn.caption", "dense.backward", "dense.update"),
         "host": ("sampler_host_ms.train", "step_host_ms.train"),
         "device": ("h2d_gbps.train",)},
+    "gt-lstm-train-b4": {
+        "spans": ("dense.to_device", "data.normalize", "dense.step",
+                  "gt.trunk", "gt.roi", "gt.classifier", "dense.backward",
+                  "dense.update"),
+        "host": ("step_host_ms.train",),
+        "device": ("h2d_gbps.train",)},
     "gt-lstm-serve-b8": {
         "spans": ("data.normalize", "gt.greedy", "gt.encode", "gt.trunk",
                   "gt.roi", "gt.classifier", "decode.greedy"),
